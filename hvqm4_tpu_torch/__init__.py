@@ -1,0 +1,31 @@
+"""hvqm4_tpu_torch — the PyTorch/CUDA port of the hvqm4_tpu device core.
+
+The host half (container demux, C++ entropy planner, plan schema, NumPy
+golden decoder, oracle hashing) is shared with `hvqm4_tpu` by import: those
+modules import no JAX. The device half is rewritten here:
+
+- `convert`: host plan arrays (numpy) → int32/u8/i16 tensors on a device;
+- `ops.device_core`: plane-layout decode in plain PyTorch, routed by device
+  (a CPU tensor takes the plain path, a CUDA tensor the kernels);
+- `kernels/`: hand-written CUDA C++ kernels for Hopper (`sm_90a`): intra
+  synthesis and inter combine, built with nvcc and bound with ctypes;
+- `utils.hashing`: on-device `oracle --csum`;
+- `parallel.multistream`: the lock-step N-stream decode step;
+- `session`, `cli`: the frame-at-a-time API and command line.
+
+Importing this package imports neither JAX nor the CUDA toolchain.
+"""
+
+__version__ = "0.1.0"
+
+
+def __getattr__(name):  # lazy, like hvqm4_tpu: importing the package is free
+    if name in ("DecoderSession", "DecodedFrame"):
+        from . import session
+
+        return getattr(session, name)
+    if name == "multi_frame_step":
+        from .parallel.multistream import multi_frame_step
+
+        return multi_frame_step
+    raise AttributeError(name)

@@ -1,0 +1,160 @@
+"""Command line for the PyTorch port.
+
+    python -m hvqm4_tpu_torch.cli info    clip.h4m
+    python -m hvqm4_tpu_torch.cli decode  clip.h4m [out.yuv] [--device cuda]
+                                          [--start-block K] [--frames N]
+                                          [--display-order] [--profile]
+    python -m hvqm4_tpu_torch.cli hash    clip.h4m [--device cuda]
+    python -m hvqm4_tpu_torch.cli verify  clip.h4m [--device cuda]
+
+`--device` defaults to `cuda`. Without a card the command fails with a
+one-line error; it never falls back to the CPU. `--device cpu` runs the
+plain PyTorch path on purpose.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+import torch
+
+from .host import (ContainerError, Demuxer, GoldenSession, PlannerError,
+                   fnv1a)
+from .session import DecoderSession
+
+PROG = "hvqm4_tpu_torch"
+_ORACLE = Path(__file__).resolve().parent.parent / "oracle" / "hvqm4_oracle"
+
+
+class DeviceError(RuntimeError):
+    """The requested device is not available."""
+
+
+def _device(name: str) -> torch.device:
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise DeviceError(f"device {name!r} requested but CUDA is not "
+                          f"available (use --device cpu for the plain path)")
+    if dev.type not in ("cuda", "cpu"):
+        raise DeviceError(f"unsupported device {name!r}")
+    return dev
+
+
+def cmd_info(args) -> int:
+    d = Demuxer(Path(args.clip).read_bytes())
+    i = d.info
+    c = i.cfg
+    print(f"HVQM4 {c.version}  {c.width}x{c.height} "
+          f"{'4:2:0' if c.h_samp == 2 else '4:4:4'}")
+    print(f"blocks={i.block_count} video_frames={i.video_frames} "
+          f"audio_frames={i.audio_frames}")
+    fps = 1e6 / i.usec_per_frame if i.usec_per_frame else 0
+    print(f"usec_per_frame={i.usec_per_frame} ({fps:.2f} fps)")
+    return 0
+
+
+def cmd_decode(args) -> int:
+    dev = _device(args.device)
+    data = Path(args.clip).read_bytes()
+    cfg = Demuxer(data).info.cfg
+    sess = DecoderSession(cfg, dev, profile=args.profile)
+    it = (sess.decode_clip_display_order(data, start_block=args.start_block)
+          if args.display_order else
+          sess.decode_clip(data, start_block=args.start_block))
+    n = 0
+    with open(args.output or os.devnull, "wb") as out:
+        for frame in it:
+            if args.frames is not None and n >= args.frames:
+                break
+            out.write(frame.yuv_bytes())
+            n += 1
+    print(f"decoded {n} frames on {dev}", file=sys.stderr)
+    if args.profile:
+        print(sess.timer.report(), file=sys.stderr)
+    return 0
+
+
+def cmd_hash(args) -> int:
+    """Per-frame FNV-1a hashes in the oracle's --hash format."""
+    dev = _device(args.device)
+    data = Path(args.clip).read_bytes()
+    sess = DecoderSession(Demuxer(data).info.cfg, dev)
+    for i, frame in enumerate(sess.decode_clip(data)):
+        print(f"frame {i} {frame.ftype} disp={frame.display_id} "
+              f"hash={fnv1a(frame.yuv_bytes()):08x}")
+    return 0
+
+
+def cmd_verify(args) -> int:
+    """Decode with the NumPy golden model and the torch port (and the C
+    oracle when built) and compare byte for byte."""
+    dev = _device(args.device)
+    data = Path(args.clip).read_bytes()
+    cfg = Demuxer(data).info.cfg
+    golden = [f.yuv_bytes() for f in
+              GoldenSession(cfg, backend="numpy").decode_clip(data)]
+    got = [f.yuv_bytes() for f in DecoderSession(cfg, dev).decode_clip(data)]
+    ok = golden == got
+    print(f"numpy vs torch[{dev}] ({len(got)} frames): "
+          f"{'MATCH' if ok else 'MISMATCH'}")
+    if _ORACLE.exists():
+        with tempfile.TemporaryDirectory() as td:
+            out = Path(td) / "c.yuv"
+            subprocess.run([str(_ORACLE), args.clip, str(out)], check=True)
+            oracle_ok = out.read_bytes() == b"".join(got)
+        print(f"torch[{dev}] vs C oracle: "
+              f"{'MATCH' if oracle_ok else 'MISMATCH'}")
+        ok = ok and oracle_ok
+    else:
+        print("C oracle not built (make -C oracle) — skipped")
+    return 0 if ok else 1
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog=PROG)
+    sub = ap.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("info")
+    p.add_argument("clip")
+    p.set_defaults(fn=cmd_info)
+
+    p = sub.add_parser("decode")
+    p.add_argument("clip")
+    p.add_argument("output", nargs="?")
+    p.add_argument("--start-block", type=int, default=0)
+    p.add_argument("--frames", type=int, metavar="N",
+                   help="stop after N frames")
+    p.add_argument("--display-order", action="store_true",
+                   help="emit frames in presentation order (default: decode order)")
+    p.add_argument("--profile", action="store_true")
+    p.set_defaults(fn=cmd_decode)
+
+    p = sub.add_parser("hash")
+    p.add_argument("clip")
+    p.set_defaults(fn=cmd_hash)
+
+    p = sub.add_parser("verify")
+    p.add_argument("clip")
+    p.set_defaults(fn=cmd_verify)
+
+    for p in sub.choices.values():
+        if p.get_default("fn") is not cmd_info:
+            p.add_argument("--device", default="cuda",
+                           help="torch device (default: cuda)")
+
+    args = ap.parse_args(argv)
+    try:
+        return args.fn(args)
+    # user-input and environment errors print one line, not a traceback
+    except (DeviceError, ContainerError, PlannerError, OSError) as e:
+        print(f"{PROG}: error: {e}", file=sys.stderr)
+        return 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

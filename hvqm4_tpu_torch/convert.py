@@ -1,0 +1,123 @@
+"""Host plan arrays → device tensors: the port's "weights carried across".
+
+The codec has no weights; its parameters are per-frame plans and the
+reference state (nest, previous and last decoded frames). This module turns
+the JAX package's plan contract (`hvqm4_tpu/ops/device_core.py`, module
+docstring) into tensors on an explicit device:
+
+    meta (…, bh, bw) u8          dc (…, bh, bw) u8
+    desc (…, 4, bh, bw) i32      the wire u32 words, viewed as int32
+    raw  (…, H, W) u8            mv, mv2 (…, 2, gh, gw) i16
+
+A leading stream axis N is kept where the arrays have one.
+
+`pack_meta`, `pack_desc` and `plane_plan_arrays` are copies of the numpy
+helpers in `hvqm4_tpu/ops/device_core.py`, which cannot be imported without
+JAX. They are a temporary duplicate: once the host half of that module moves
+to a JAX-free module, import them from there instead.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .host import FramePlan, PlanePlan, SeqConfig
+
+PLAN_KEYS = ("meta", "dc", "raw", "desc", "mv", "mv2")
+
+
+# --- copied from hvqm4_tpu/ops/device_core.py (JAX-free numpy) -------------
+
+def pack_meta(p: PlanePlan) -> np.ndarray:
+    """PlanePlan → the packed per-block meta byte (mode | refsel | cls)."""
+    return (p.mode | (p.refsel << 3) | (p.cls << 5)).astype(np.uint8)
+
+
+def pack_desc(p: PlanePlan) -> np.ndarray:
+    """PlanePlan → basis descriptors in wire u32 form, block-major
+    (bh, bw, MAX_BASES) — the exact 32-bit layout of FORMAT.md §6.5."""
+    return ((p.basis_nx.astype(np.uint32) << 25)
+            | (p.basis_ny.astype(np.uint32) << 18)
+            | ((np.maximum(p.basis_sx.astype(np.uint32), 1) - 1) << 17)
+            | ((np.maximum(p.basis_sy.astype(np.uint32), 1) - 1) << 16)
+            | ((p.basis_off.astype(np.int64) & 0xFF).astype(np.uint32) << 8)
+            | (p.basis_scale.astype(np.int64) & 0xFF).astype(np.uint32))
+
+
+def plane_plan_arrays(p: PlanePlan) -> dict[str, np.ndarray]:
+    """PlanePlan → the dense per-plane plan arrays (host-side, numpy)."""
+    bh, bw = p.mode.shape
+    raw_plane = (p.raw.reshape(bh, bw, 4, 4).transpose(0, 2, 1, 3)
+                 .reshape(bh * 4, bw * 4))
+    return {
+        "meta": pack_meta(p),
+        "dc": p.dc,
+        "raw": np.ascontiguousarray(raw_plane),
+        "desc": np.ascontiguousarray(pack_desc(p).transpose(2, 0, 1)),
+        "mv": np.ascontiguousarray(p.mv.transpose(2, 0, 1)),
+        "mv2": np.ascontiguousarray(p.mv2.transpose(2, 0, 1)),
+    }
+
+
+# --- numpy → torch ---------------------------------------------------------
+
+def _to(a: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def plan_to_torch(plan_np: dict[str, np.ndarray], device) -> dict:
+    """One plane's plan arrays (with or without a leading stream axis) →
+    tensors on `device`. The u32 descriptors travel as their int32 view:
+    torch has no shifts on uint32, and the kernels read int32."""
+    out = {}
+    for k in PLAN_KEYS:
+        a = np.asarray(plan_np[k])
+        if k == "desc":
+            a = np.ascontiguousarray(a, dtype=np.uint32).view(np.int32)
+        elif k in ("mv", "mv2"):
+            a = a.astype(np.int16, copy=False)
+        else:
+            a = a.astype(np.uint8, copy=False)
+        out[k] = _to(a, device)
+    return out
+
+
+def state_to_torch(nest: np.ndarray, ref_prev: list, ref_last: list,
+                   device) -> tuple:
+    """Decode state (nest u8, reference planes u8 ×3 each) → tensors that
+    own their memory: the step updates state in place, which must never
+    write through to the caller's arrays (on the CPU, `.to` would alias)."""
+    def own(a):
+        return torch.from_numpy(np.asarray(a, np.uint8)).to(device, copy=True)
+
+    return own(nest), [own(r) for r in ref_prev], [own(r) for r in ref_last]
+
+
+def frame_plan_to_torch(plan: FramePlan, device) -> list[dict]:
+    """A planned frame → one tensor plan dict per plane (Y, U, V)."""
+    return [plan_to_torch(plane_plan_arrays(p), device) for p in plan.planes]
+
+
+def stack_plans(cfg: SeqConfig, plans: list, device) -> tuple:
+    """One lock-step step of N streams: N planned frames (None for a stream
+    that has ended) → (plane_plans, new_nest, is_i, is_ref), the per-field
+    inputs of `parallel.multistream.multi_frame_step`.
+
+    An ended stream decodes an all-zero plan that is neither an I frame nor
+    a reference, so it leaves its state as it was."""
+    planes = []
+    for pi, (bh, bw) in enumerate(cfg.block_grids):
+        arrs = [plane_plan_arrays(p.planes[pi] if p is not None
+                                  else PlanePlan.zeros(bh, bw))
+                for p in plans]
+        planes.append(plan_to_torch(
+            {k: np.stack([a[k] for a in arrs]) for k in PLAN_KEYS}, device))
+    empty = np.zeros(cfg.nest_shape, np.uint8)
+    new_nest = np.stack([p.nest if p is not None and p.ftype == "I"
+                         else empty for p in plans])
+    is_i = [p is not None and p.ftype == "I" for p in plans]
+    is_ref = [p is not None and p.ftype in ("I", "P") for p in plans]
+    return (planes, _to(new_nest, device),
+            torch.tensor(is_i, device=device),
+            torch.tensor(is_ref, device=device))

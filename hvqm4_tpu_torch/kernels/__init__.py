@@ -1,0 +1,11 @@
+"""Hand-written CUDA kernels for Hopper (sm_90a), beside their plain
+PyTorch versions.
+
+- `intra.intra_synth`: intra synthesis (+ AOT accumulator), `csrc/intra.cu`
+- `inter.inter_combine`: MC predictions + select + residual + merge,
+  `csrc/inter.cu`
+
+Each wrapper takes its plain version for CPU tensors and launches its kernel
+for CUDA tensors, or raises. `_build` compiles the sources with nvcc on
+first use and binds them with ctypes.
+"""

@@ -1,0 +1,47 @@
+// Shared device helpers for the HVQM4 plane kernels (sm_90a).
+//
+// Layout contract (hvqm4_tpu_torch/convert.py): every tensor is contiguous
+// with a leading stream axis N; per-block fields are (N, bh, bw), pixel
+// planes (N, 4*bh, 4*bw), descriptors (N, 4, bh, bw) int32 (the u32 wire
+// words), vectors (N, 2, gh, gw) int16. One thread computes one pixel; the
+// grid is (pixel tiles, N).
+//
+// Shifts of signed ints (`acc >> 4`, `sx >> 1`) are arithmetic under nvcc,
+// as in the JAX and PyTorch references; `& 1` takes the half-pel phase of
+// a negative coordinate. Division never appears on signed values.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace hvqm4 {
+
+constexpr int kThreads = 256;
+constexpr int kMaxBases = 4;
+constexpr int kMaxNest = 4096;  // the nest is 38x70 or 70x38 = 2,660 B
+
+__device__ __forceinline__ int clampi(int v, int lo, int hi) {
+  return min(max(v, lo), hi);
+}
+
+__device__ __forceinline__ int clip255(int v) { return clampi(v, 0, 255); }
+
+// Intra modes 1..4 carry `mode` bases, every inter block `mode` residual
+// bases, all other blocks none (FORMAT.md 5.3).
+__device__ __forceinline__ int basis_count(int cls, int mode) {
+  return (cls != 0 || (mode >= 1 && mode <= 4)) ? mode : 0;
+}
+
+// The smoothing weight table W = [4, 1, 0, 0] (FORMAT.md 6.3).
+__device__ __forceinline__ int wsel(int idx) {
+  return idx == 0 ? 4 : (idx == 1 ? 1 : 0);
+}
+
+// One thread per pixel of a plane along x, one stream per grid row along y
+// (at most 65,535 streams). The wrappers keep every tensor under 2^31
+// elements, so in-plane indices fit int; stream offsets use size_t.
+inline dim3 plane_grid(int n, int npix) {
+  return dim3((unsigned)((npix + kThreads - 1) / kThreads), (unsigned)n);
+}
+
+}  // namespace hvqm4

@@ -1,0 +1,113 @@
+"""On the card: the CUDA kernels against their plain versions, and the
+session on `cuda` against the C oracle.
+
+Every test here needs a CUDA card and skips without one. The file imports
+no JAX, so it also runs where JAX is not installed; tests/conftest.py
+imports JAX, so run it there without the conftest:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
+"""
+
+import pathlib
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from chip_smoke import random_plan
+from hvqm4_tpu_torch.convert import plan_to_torch
+from hvqm4_tpu_torch.host import SeqConfig
+from hvqm4_tpu_torch.kernels import _build
+from hvqm4_tpu_torch.kernels.inter import inter_combine, inter_combine_plain
+from hvqm4_tpu_torch.kernels.intra import intra_synth, intra_synth_plain
+from hvqm4_tpu_torch.session import DecoderSession
+from tools.encoder import make_clip
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+
+
+@pytest.fixture()
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda", 0)
+
+
+def _plan(rng, bh, bw, n, mv_grid):
+    """chip_smoke's random plans: raw blocks sprinkled in, every refsel,
+    vectors on a per-block or per-MB grid, some far outside the plane."""
+    grid = (bh, bw) if mv_grid == "block" else (bh // 2, bw // 2)
+    return random_plan(rng, bh, bw, n, grid)
+
+
+# (n or None for no stream axis, bh, bw, nest, vector grid): ragged grids
+# that are no multiple of the 256-thread tile, both nests, per-MB vectors,
+# and the 640x480 grids at N=8
+CASES = [(None, 5, 7, (38, 70), "block"), (3, 12, 16, (70, 38), "mb"),
+         (8, 120, 160, (38, 70), "mb"), (8, 60, 80, (70, 38), "block")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,bh,bw,nest_shape,mv_grid", CASES)
+def test_cuda_kernels_match_plain(cuda, n, bh, bw, nest_shape, mv_grid):
+    rng = np.random.default_rng(bh + bw)
+    p = _plan(rng, bh, bw, n or 1, mv_grid)
+    lead = (n,) if n else ()
+    if not n:
+        p = {k: v[0] for k, v in p.items()}
+    tp = plan_to_torch(p, cuda)
+    nest = torch.from_numpy(rng.integers(0, 256, (*lead, *nest_shape),
+                                         dtype=np.uint8)).to(cuda)
+    ref0, ref1 = (torch.from_numpy(rng.integers(
+        0, 256, (*lead, bh * 4, bw * 4), dtype=np.uint8)).to(cuda)
+        for _ in range(2))
+    before = [k.launches for k in _build.kernels()]
+    want_px, want_acc = intra_synth_plain(tp, nest)
+    px, acc = intra_synth(tp, nest, want_acc=True)
+    px_noacc, none = intra_synth(tp, nest, want_acc=False)
+    out = inter_combine(tp, px, acc, ref0, ref1)
+    torch.cuda.synchronize()
+    assert none is None
+    assert torch.equal(px, want_px) and torch.equal(px_noacc, want_px)
+    assert torch.equal(acc, want_acc)
+    assert torch.equal(out, inter_combine_plain(tp, want_px, want_acc,
+                                                ref0, ref1))
+    assert [k.launches - b for k, b in zip(_build.kernels(), before)] \
+        == [1, 1, 1]
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_reject_bad_inputs(cuda):
+    rng = np.random.default_rng(3)
+    tp = plan_to_torch(_plan(rng, 4, 4, 2, "block"), cuda)
+    nest = torch.zeros((2, 38, 70), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="desc"):
+        intra_synth({**tp, "desc": tp["desc"].long()}, nest)
+    with pytest.raises(ValueError, match="contiguous"):
+        intra_synth(tp, nest.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError, match="nest"):
+        intra_synth(tp, torch.zeros((2, 80, 80), dtype=torch.uint8,
+                                    device=cuda))
+    px, acc = intra_synth(tp, nest)
+    with pytest.raises(ValueError, match="ref1"):
+        inter_combine(tp, px, acc, px, px.cpu())
+
+
+@pytest.mark.cuda
+def test_cuda_session_matches_oracle(cuda, tmp_path):
+    subprocess.run(["make", "-s", "-C", str(REPO / "oracle")], check=True)
+    cases = [(64, 48, 2, ["IPBPB", "IPP"], 1, False),
+             (48, 64, 1, ["IPBPB"], 2, False),
+             (256, 192, 2, ["IP"], 79, False),   # > 2,048 luma blocks
+             (64, 48, 2, ["IPBPB", "IPP"], 5, True)]
+    for w, h, samp, gops, seed, mv_extreme in cases:
+        cfg = SeqConfig(w, h, samp, samp)
+        clip = make_clip(cfg, gops, seed=seed, mv_extreme=mv_extreme)
+        inp, out = tmp_path / "c.h4m", tmp_path / "c.yuv"
+        inp.write_bytes(clip)
+        subprocess.run([str(REPO / "oracle" / "hvqm4_oracle"), str(inp),
+                        str(out)], check=True)
+        got = b"".join(f.yuv_bytes()
+                       for f in DecoderSession(cfg, cuda).decode_clip(clip))
+        assert got == out.read_bytes(), (w, h, gops, seed)
