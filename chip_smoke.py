@@ -10,28 +10,40 @@ Phases, in order; any failure exits non-zero before the result line:
 2. build: the CUDA kernels (nvcc, sm_90a), the C oracle and the C++ planner,
    with their build seconds and nvcc's register/shared-memory report.
 3. kernels vs plain: every CUDA entry point against its plain PyTorch
-   version on the card, on random plans at the 640x480 block grids with
-   N=8 streams, both nest orientations, per-block and per-MB vector grids.
-   Exact equality.
+   version on the card, exact: the decode kernels on random plans at the
+   640x480 block grids with N=8 streams, both nest orientations, per-block
+   and per-MB vector grids; `yuv_to_rgb` on random planes at 480x640, N=8,
+   4:2:0 and 4:4:4, at a ragged 250x90, and in the 2-D form.
 4. session: testdata/ref640.h4m and retail640.h4m (28 frames each) through
    `DecoderSession` on cuda; every frame's on-device csum must equal
    `oracle --csum`, and retail640's FNV-1a hashes `oracle --hash`.
 5. lock-step: 8 streams (4x each clip) through `multi_frame_step`; every
-   frame of every stream must equal the oracle's csum.
-6. launches and times: every kernel must have launched during phases 4-5;
-   kernel and plain times (CUDA events, 3 warm-ups, median of 20), session
-   and lock-step frame rates, host planning timed separately.
+   frame of every stream must equal the oracle's csum. The decode kernels
+   must have launched during phases 4-5.
+6. serve: the port's `DecodeServer` on cuda, on a thread, answers both
+   clips over TCP in YUV (FNV-1a == `oracle --hash`), RGB (== the integer
+   formula on the oracle's frames) and EMBED (28 finite 384-vectors; two
+   frames a clip against the port's CPU ViT with the same weights), then
+   four mixed requests over one `MuxClient` connection (== the single-shot
+   replies), then metrics. Every kernel, `yuv_to_rgb` included, must have
+   launched during this phase. Then request latencies and the ViT's time
+   per frame.
+7. times: kernel and plain times (CUDA events, 3 warm-ups, median of 20),
+   session and lock-step frame rates, host planning timed separately.
 
+`launches` in the kernels line is the sum of the counted phases 4-5 and 6.
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -41,6 +53,7 @@ REPO = Path(__file__).resolve().parent
 CLIPS = ("ref640.h4m", "retail640.h4m")
 N_STREAMS = 8
 GRIDS_640 = ((120, 160), (60, 80))  # luma and 4:2:0 chroma block grids
+SCRATCH = REPO / "build" / "chip_smoke"  # git ignores build/
 
 
 def fail(msg: str) -> None:
@@ -110,6 +123,7 @@ def phase_kernels(dev) -> dict:
     import torch
 
     from hvqm4_tpu_torch.convert import plan_to_torch
+    from hvqm4_tpu_torch.kernels.csc import yuv_to_rgb, yuv_to_rgb_plain
     from hvqm4_tpu_torch.kernels.inter import inter_combine, inter_combine_plain
     from hvqm4_tpu_torch.kernels.intra import intra_synth, intra_synth_plain
 
@@ -141,10 +155,35 @@ def phase_kernels(dev) -> dict:
         print(f"kernels vs plain: grid {bh}x{bw} nest {nest_shape[0]}x"
               f"{nest_shape[1]} vectors {grid[0]}x{grid[1]} N={N_STREAMS}: "
               f"max_abs_err {err}")
+    # (n or None for the 2-D form, H, W, sampling); 250x90 is no multiple
+    # of the 256-thread tile nor of the JAX kernel's 64-row tile
+    err["yuv_to_rgb"] = 0
+    for n, h, w, samp in ((N_STREAMS, 480, 640, 2), (N_STREAMS, 480, 640, 1),
+                          (N_STREAMS, 250, 90, 2), (None, 480, 640, 2)):
+        y, u, v = random_yuv(rng, n, h, w, samp, dev)
+        e = max_err(yuv_to_rgb(y, u, v, samp, samp),
+                    yuv_to_rgb_plain(y, u, v, samp, samp))
+        torch.cuda.synchronize()
+        err["yuv_to_rgb"] = max(err["yuv_to_rgb"], e)
+        print(f"kernels vs plain: yuv_to_rgb {h}x{w} "
+              f"{'4:2:0' if samp == 2 else '4:4:4'} "
+              f"{f'N={n}' if n else '2-D'}: max_abs_err {e}")
     for name, e in err.items():
         if e != 0:
             fail(f"{name} differs from its plain version (max_abs_err {e})")
     return err
+
+
+def random_yuv(rng, n, h: int, w: int, samp: int, dev) -> list:
+    """Random u8 planes [Y, U, V] on `dev`, chroma at its native size, with
+    a leading stream axis unless `n` is None."""
+    import torch
+
+    lead = (n,) if n else ()
+    return [torch.from_numpy(rng.integers(0, 256, (*lead, hh, ww),
+                                          dtype=np.uint8)).to(dev)
+            for hh, ww in ((h, w), (h // samp, w // samp),
+                           (h // samp, w // samp))]
 
 
 def phase_session(dev, clips: dict, oracle: Path, want_csums: dict) -> None:
@@ -236,12 +275,14 @@ def run_lockstep(cfg, steps, dev) -> None:
 
 
 def phase_times(dev, cfg, clips: dict, tag: str) -> dict:
-    """Phase 6 timings: kernels vs plain at the 640x480 grids with N=8,
-    then the session and lock-step frame rates."""
+    """Phase 7 timings: the decode kernels vs plain at the 640x480 grids
+    with N=8, `yuv_to_rgb` vs plain at 480x640 with N=1 and N=8, then the
+    session and lock-step frame rates."""
     import torch
 
     from hvqm4_tpu_torch.convert import plan_to_torch
     from hvqm4_tpu_torch.host import Demuxer
+    from hvqm4_tpu_torch.kernels.csc import yuv_to_rgb, yuv_to_rgb_plain
     from hvqm4_tpu_torch.kernels.inter import inter_combine, inter_combine_plain
     from hvqm4_tpu_torch.kernels.intra import intra_synth, intra_synth_plain
     from hvqm4_tpu_torch.session import DecoderSession
@@ -275,6 +316,19 @@ def phase_times(dev, cfg, clips: dict, tag: str) -> dict:
                   f"{k:.4f} ms, plain {p:.4f} ms ({p / k:.1f}x) per call; "
                   f"device only: kernel {device_us_per_call(kern)}, plain "
                   f"{device_us_per_call(plain)} [{tag}]")
+
+    for n in (1, N_STREAMS):
+        y, u, v = random_yuv(rng, n, 480, 640, 2, dev)
+        kern = lambda: yuv_to_rgb(y, u, v, 2, 2)  # noqa: E731
+        plain = lambda: yuv_to_rgb_plain(y, u, v, 2, 2)  # noqa: E731
+        p1, k1, k2, p2 = (cuda_ms(plain), cuda_ms(kern), cuda_ms(kern),
+                          cuda_ms(plain))
+        k, p = min(k1, k2), min(p1, p2)
+        times["yuv_to_rgb"] = (k, p)  # N=8 goes in the JSON
+        print(f"time yuv_to_rgb 480x640 4:2:0 N={n}: kernel {k:.4f} ms, "
+              f"plain {p:.4f} ms ({p / k:.1f}x) per call; device only: "
+              f"kernel {device_us_per_call(kern)}, plain "
+              f"{device_us_per_call(plain)} [{tag}]")
 
     for name, data in clips.items():
         sess = DecoderSession(Demuxer(data).info.cfg, dev, profile=True)
@@ -310,6 +364,170 @@ def phase_times(dev, cfg, clips: dict, tag: str) -> dict:
         cfg, dev).decode_clip(retail)), "session retail640.h4m (28 frames)",
         tag)
     return times
+
+
+def oracle_frames(oracle: Path, name: str, cfg) -> tuple:
+    """The oracle's decoded frames of a clip (planar YUV bytes each) and
+    its per-frame `--hash` lines."""
+    path = REPO / "testdata" / name
+    SCRATCH.mkdir(parents=True, exist_ok=True)
+    out = SCRATCH / f"{name}.yuv"
+    subprocess.run([str(oracle), str(path), str(out)], check=True)
+    data = out.read_bytes()
+    fb = cfg.frame_bytes
+    frames = [data[i:i + fb] for i in range(0, len(data), fb)]
+    res = subprocess.run([str(oracle), "--hash", str(path), "/dev/null"],
+                         check=True, capture_output=True, text=True)
+    hashes = [ln.split("hash=")[1] for ln in res.stdout.splitlines()
+              if "hash=" in ln]
+    return frames, hashes
+
+
+def split_planes(frame: bytes, cfg) -> list:
+    """Planar YUV bytes → [Y, U, V] numpy planes."""
+    planes, off = [], 0
+    for h, w in cfg.plane_shapes:
+        planes.append(np.frombuffer(frame, np.uint8, h * w, off).reshape(h, w))
+        off += h * w
+    return planes
+
+
+def ref_rgb(frame: bytes, cfg) -> bytes:
+    """The normative integer YUV→RGB (hvqm4_tpu/ops/csc.py) in numpy, chroma
+    replicated to full size."""
+    y, u, v = split_planes(frame, cfg)
+    u, v = (np.repeat(np.repeat(c, cfg.v_samp, 0), cfg.h_samp, 1)
+            for c in (u, v))
+    yi = y.astype(np.int64)
+    ui = u.astype(np.int64) - 128
+    vi = v.astype(np.int64) - 128
+    r = yi + ((91881 * vi + 32768) >> 16)
+    g = yi - ((22554 * ui + 46802 * vi + 32768) >> 16)
+    b = yi + ((116130 * ui + 32768) >> 16)
+    return np.clip(np.stack([r, g, b], -1), 0, 255).astype(np.uint8).tobytes()
+
+
+def cpu_embedding(model, frame: bytes, cfg, vcfg) -> np.ndarray:
+    """The port's plain CPU path on one oracle frame: RGB, resize, ViT."""
+    import torch
+
+    from hvqm4_tpu_torch.ops.csc import frame_to_rgb, resize_bilinear
+
+    planes = [torch.from_numpy(p.copy()) for p in split_planes(frame, cfg)]
+    with torch.inference_mode():
+        img = resize_bilinear(frame_to_rgb(planes, cfg.h_samp, cfg.v_samp),
+                              vcfg.image_size, vcfg.image_size)
+        return model(img[None])[0].numpy()
+
+
+def phase_serve(dev, cfg, clips: dict, oracle: Path, kernels: list,
+                tag: str) -> dict:
+    """Phase 6: the port's decode service on the card. Checks every reply,
+    takes the launch counts right after the checked requests, then times
+    requests, the ViT and the resize; returns the counts."""
+    import torch
+
+    from hvqm4_tpu_torch import serve
+    from hvqm4_tpu_torch.host import fnv1a
+    from hvqm4_tpu_torch.ops.csc import resize_bilinear
+
+    modes = {"yuv": serve.MODE_YUV, "rgb": serve.MODE_RGB,
+             "embed": serve.MODE_EMBED}
+    srv = serve.DecodeServer(("127.0.0.1", 0), device=dev)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    host, port = srv.server_address
+    try:
+        replies = {}
+        for name, data in clips.items():
+            frames, hashes = oracle_frames(oracle, name, cfg)
+            for mode, m in modes.items():
+                t0 = time.perf_counter()
+                chunks = serve.decode_remote(host, port, data, mode=m)
+                replies[name, mode] = chunks
+                print(f"serve {name} {mode}: {len(chunks)} chunks, first "
+                      f"request {time.perf_counter() - t0:.4f} s [{tag}]")
+            if [f"{fnv1a(c):08x}" for c in replies[name, "yuv"]] != hashes:
+                fail(f"serve {name} yuv: FNV-1a differs from oracle --hash")
+            if replies[name, "rgb"] != [ref_rgb(f, cfg) for f in frames]:
+                fail(f"serve {name} rgb: differs from the integer formula "
+                     f"on the oracle's frames")
+            emb = [np.frombuffer(c, "<f4") for c in replies[name, "embed"]]
+            vcfg, model = srv._vit
+            if len(emb) != len(frames) or any(
+                    e.shape != (vcfg.dim,) or not np.isfinite(e).all()
+                    for e in emb):
+                fail(f"serve {name} embed: want {len(frames)} finite "
+                     f"{vcfg.dim}-vectors")
+            cpu_model = copy.deepcopy(model).to("cpu")
+            for i in (0, len(frames) - 1):
+                want = cpu_embedding(cpu_model, frames[i], cfg, vcfg)
+                d = float(np.abs(emb[i] - want).max())
+                cos = float(emb[i] @ want / np.linalg.norm(emb[i])
+                            / np.linalg.norm(want))
+                print(f"serve {name} embed frame {i}: card vs CPU max abs "
+                      f"{d:.3e}, cosine {cos:.7f}")
+                # a gate for gross errors (frame, resize, weights on the
+                # card): faults of the bf16 dtype flow hide inside it and
+                # are held part by part in tests/test_torch_vit.py
+                if not (d <= 2e-2 and cos >= 0.9999):
+                    fail(f"serve {name} embed frame {i}: max abs {d} > 2e-2 "
+                         f"or cosine {cos} < 0.9999 against the CPU ViT")
+            print(f"serve {name}: yuv FNV-1a == oracle --hash, rgb == integer "
+                  f"formula on the oracle's frames, embed within tolerance")
+
+        jobs = [(CLIPS[0], "yuv"), (CLIPS[1], "rgb"), (CLIPS[0], "embed"),
+                (CLIPS[1], "yuv")]
+        with serve.MuxClient(host, port) as mc:
+            ids = [mc.submit(clips[n], modes[m]) for n, m in jobs]
+            for (n, m), rid in reversed(list(zip(jobs, ids))):
+                if mc.result(rid, timeout=300) != replies[n, m]:
+                    fail(f"serve mux {n} {m}: differs from the single-shot "
+                         f"reply")
+        metrics = serve.fetch_metrics(host, port)
+        want_modes = {m: 2 + sum(j[1] == m for j in jobs) for m in modes}
+        if metrics["by_mode"] != want_modes or metrics["errors"] != 0:
+            fail(f"serve metrics: by_mode {metrics['by_mode']} errors "
+                 f"{metrics['errors']}, want {want_modes} and 0")
+        print(f"serve mux: {len(jobs)} mixed requests over one connection "
+              f"== single-shot replies; metrics by_mode {metrics['by_mode']}")
+        torch.cuda.synchronize()
+        launches = {k.symbol: k.launches for k in kernels}
+
+        for name, data in clips.items():
+            for mode, m in modes.items():
+                lat = []
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    serve.decode_remote(host, port, data, mode=m)
+                    lat.append(time.perf_counter() - t0)
+                print(f"time serve {name} {mode}: request latency median "
+                      f"{statistics.median(lat):.4f} s of "
+                      f"{[round(x, 4) for x in lat]} (28 frames) [{tag}]")
+        retail = clips[CLIPS[1]]
+        device_profile(lambda: serve.decode_remote(host, port, retail,
+                                                   mode=serve.MODE_EMBED),
+                       f"serve {CLIPS[1]} embed request (28 frames)", tag)
+        vcfg, model = srv._vit
+        img = torch.rand((1, vcfg.image_size, vcfg.image_size, 3),
+                         generator=torch.Generator().manual_seed(0)).to(dev)
+        rgb = torch.from_numpy(np.frombuffer(
+            replies[CLIPS[1], "rgb"][0], np.uint8).reshape(480, 640, 3)
+            .copy()).to(dev)
+        with torch.inference_mode():
+            print(f"time vit: {cuda_ms(lambda: model(img)):.4f} ms per frame "
+                  f"(224x224, dim {vcfg.dim}, depth {vcfg.depth}, batch 1); "
+                  f"device only {device_us_per_call(lambda: model(img))} "
+                  f"[{tag}]")
+            resize = lambda: resize_bilinear(rgb, 224, 224)  # noqa: E731
+            print(f"time resize_bilinear 480x640 -> 224x224: "
+                  f"{cuda_ms(resize):.4f} ms per frame; device only "
+                  f"{device_us_per_call(resize)} [{tag}]")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=30)
+    return launches
 
 
 def profile(fn):
@@ -398,7 +616,7 @@ def main() -> int:
     # phase 3: each kernel against its plain version
     err = phase_kernels(dev)
 
-    # phases 4-5: the main path, counted
+    # phases 4-5: the decode path, counted
     from hvqm4_tpu_torch.host import oracle_csums
 
     clips = {name: (REPO / "testdata" / name).read_bytes() for name in CLIPS}
@@ -410,25 +628,37 @@ def main() -> int:
     phase_session(dev, clips, oracle, want)
     phase_lockstep(cfg, clips, dev, want)
     torch.cuda.synchronize()
-    launches = {k.symbol: k.launches for k in kernels}
-    print(f"launches on the main path: {launches}")
-    for sym, count in launches.items():
-        if count == 0:
-            fail(f"{sym} never launched on the main path")
+    decode_launches = {k.symbol: k.launches for k in kernels}
+    print(f"launches on the decode path (phases 4-5): {decode_launches}")
+    for sym, count in decode_launches.items():
+        if count == 0 and sym != "hvqm4_yuv_to_rgb":
+            fail(f"{sym} never launched on the decode path")
 
-    # phase 6: times
+    # phase 6: the decode service, counted
+    for k in kernels:
+        k.launches = 0
+    serve_launches = phase_serve(dev, cfg, clips, oracle, kernels, tag)
+    print(f"launches on the serve path (phase 6): {serve_launches}")
+    for sym, count in serve_launches.items():
+        if count == 0:
+            fail(f"{sym} never launched on the serve path")
+
+    # phase 7: times
     times = phase_times(dev, cfg, clips, tag)
 
     sources = {"hvqm4_intra_synth_noacc": "intra.cu",
                "hvqm4_intra_synth_acc": "intra.cu",
-               "hvqm4_inter_combine": "inter.cu"}
+               "hvqm4_inter_combine": "inter.cu",
+               "hvqm4_yuv_to_rgb": "csc.cu"}
     rows = []
     for k in kernels:
         name = k.symbol.removeprefix("hvqm4_")
         ms, plain_ms = times[name]
         rows.append({"name": name, "route": "cuda",
                      "source": f"hvqm4_tpu_torch/kernels/csrc/{sources[k.symbol]}",
-                     "replaces": k.replaces, "launches": launches[k.symbol],
+                     "replaces": k.replaces,
+                     "launches": (decode_launches[k.symbol]
+                                  + serve_launches[k.symbol]),
                      "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms})
     print(card)
     print(json.dumps({"kernels": rows}))

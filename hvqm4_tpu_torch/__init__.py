@@ -8,10 +8,14 @@ modules import no JAX. The device half is rewritten here:
 - `ops.device_core`: plane-layout decode in plain PyTorch, routed by device
   (a CPU tensor takes the plain path, a CUDA tensor the kernels);
 - `kernels/`: hand-written CUDA C++ kernels for Hopper (`sm_90a`): intra
-  synthesis and inter combine, built with nvcc and bound with ctypes;
+  synthesis, inter combine and YUV→RGB, built with nvcc and bound with
+  ctypes;
+- `ops.csc`: YUV→RGB (routed by device) and the bilinear resize;
+- `models.vit`: the ViT encoder, fed from decoded frames;
 - `utils.hashing`: on-device `oracle --csum`;
 - `parallel.multistream`: the lock-step N-stream decode step;
-- `session`, `cli`: the frame-at-a-time API and command line.
+- `session`, `cli`: the frame-at-a-time API and command line;
+- `serve`: the decode service (YUV, RGB and ViT-embedding requests).
 
 Importing this package imports neither JAX nor the CUDA toolchain.
 """

@@ -4,6 +4,7 @@
     python -m hvqm4_tpu_torch.cli decode  clip.h4m [out.yuv] [--device cuda]
                                           [--start-block K] [--frames N]
                                           [--display-order] [--profile]
+                                          [--ppm DIR] [--y4m]
     python -m hvqm4_tpu_torch.cli hash    clip.h4m [--device cuda]
     python -m hvqm4_tpu_torch.cli verify  clip.h4m [--device cuda]
 
@@ -24,7 +25,8 @@ from pathlib import Path
 import torch
 
 from .host import (ContainerError, Demuxer, GoldenSession, PlannerError,
-                   fnv1a)
+                   _y4m_header, fnv1a)
+from .ops.csc import frame_to_rgb
 from .session import DecoderSession
 
 PROG = "hvqm4_tpu_torch"
@@ -61,22 +63,49 @@ def cmd_info(args) -> int:
 def cmd_decode(args) -> int:
     dev = _device(args.device)
     data = Path(args.clip).read_bytes()
-    cfg = Demuxer(data).info.cfg
+    demux = Demuxer(data)
+    cfg = demux.info.cfg
     sess = DecoderSession(cfg, dev, profile=args.profile)
+    if args.y4m:
+        # a presentation container: frames in display order, to the output
+        # path or to stdout for `| mpv -`
+        args.display_order = True
+        out = open(args.output, "wb") if args.output else sys.stdout.buffer
+        out.write(_y4m_header(demux.info))
+    else:
+        out = open(args.output or os.devnull, "wb")
     it = (sess.decode_clip_display_order(data, start_block=args.start_block)
           if args.display_order else
           sess.decode_clip(data, start_block=args.start_block))
     n = 0
-    with open(args.output or os.devnull, "wb") as out:
+    try:
         for frame in it:
             if args.frames is not None and n >= args.frames:
                 break
+            if args.y4m:
+                out.write(b"FRAME\n")
             out.write(frame.yuv_bytes())
+            if args.ppm:
+                _write_ppm(frame, cfg, Path(args.ppm) / f"frame{n:05d}.ppm")
             n += 1
+    finally:
+        if out is sys.stdout.buffer:
+            out.flush()
+        else:
+            out.close()
     print(f"decoded {n} frames on {dev}", file=sys.stderr)
     if args.profile:
         print(sess.timer.report(), file=sys.stderr)
     return 0
+
+
+def _write_ppm(frame, cfg, path: Path) -> None:
+    """One frame as a binary PPM, converted on the frame's device."""
+    rgb = frame_to_rgb(frame.planes, cfg.h_samp, cfg.v_samp).cpu().numpy()
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(b"P6\n%d %d\n255\n" % (rgb.shape[1], rgb.shape[0]))
+        f.write(rgb.tobytes())
 
 
 def cmd_hash(args) -> int:
@@ -132,6 +161,11 @@ def main(argv=None) -> int:
     p.add_argument("--display-order", action="store_true",
                    help="emit frames in presentation order (default: decode order)")
     p.add_argument("--profile", action="store_true")
+    p.add_argument("--ppm", metavar="DIR",
+                   help="also write each frame as RGB .ppm into DIR")
+    p.add_argument("--y4m", action="store_true",
+                   help="write YUV4MPEG2 instead of raw YUV (to OUTPUT, or "
+                        "stdout; implies --display-order)")
     p.set_defaults(fn=cmd_decode)
 
     p = sub.add_parser("hash")

@@ -11,6 +11,9 @@ docstring) into tensors on an explicit device:
 
 A leading stream axis N is kept where the arrays have one.
 
+The one model on the decode path, the ViT, does have weights:
+`vit_params_to_torch` carries the JAX parameter pytree across.
+
 `pack_meta`, `pack_desc` and `plane_plan_arrays` are copies of the numpy
 helpers in `hvqm4_tpu/ops/device_core.py`, which cannot be imported without
 JAX. They are a temporary duplicate: once the host half of that module moves
@@ -121,3 +124,40 @@ def stack_plans(cfg: SeqConfig, plans: list, device) -> tuple:
     return (planes, _to(new_nest, device),
             torch.tensor(is_i, device=device),
             torch.tensor(is_ref, device=device))
+
+
+def _leaf_to_torch(a, device) -> torch.Tensor:
+    """A numpy leaf → a tensor of the same dtype that owns its memory. bf16
+    (numpy's extension dtype, as `np.asarray` of a JAX bf16 array gives)
+    crosses as its 16-bit pattern."""
+    a = np.array(a)  # a writable copy: JAX hands out read-only arrays
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device)
+
+
+def vit_params_to_torch(params_np: dict, device) -> dict:
+    """The JAX ViT pytree (`hvqm4_tpu.models.vit.init_vit`, leaves as numpy
+    f32 or bf16) → the state dict of `models.vit.ViT`, each leaf in the
+    dtype it came in. `wq`, `wk`, `wv` (d, nh, hd) become (d, nh·hd) and
+    `wo` (nh, hd, d) becomes (nh·hd, d)."""
+    def flat(prefix: str, tree: dict) -> dict:
+        out = {}
+        for k, a in tree.items():
+            if isinstance(a, dict):
+                out.update(flat(f"{prefix}{k}.", a))
+                continue
+            a = np.asarray(a)
+            if k in ("wq", "wk", "wv"):
+                a = a.reshape(a.shape[0], -1)
+            elif k == "wo":
+                a = a.reshape(-1, a.shape[-1])
+            out[prefix + k] = _leaf_to_torch(a, device)
+        return out
+
+    sd = flat("", {k: v for k, v in params_np.items() if k != "blocks"})
+    for i, blk in enumerate(params_np["blocks"]):
+        sd.update(flat(f"blocks.{i}.", blk))
+    return sd

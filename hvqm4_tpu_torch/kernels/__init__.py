@@ -4,6 +4,7 @@ PyTorch versions.
 - `intra.intra_synth`: intra synthesis (+ AOT accumulator), `csrc/intra.cu`
 - `inter.inter_combine`: MC predictions + select + residual + merge,
   `csrc/inter.cu`
+- `csc.yuv_to_rgb`: YUV→RGB with the chroma upsample fused, `csrc/csc.cu`
 
 Each wrapper takes its plain version for CPU tensors and launches its kernel
 for CUDA tensors, or raises. `_build` compiles the sources with nvcc on

@@ -5,7 +5,7 @@ PyTorch header, so one nvcc call builds them in seconds:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -o build/hvqm4_tpu_torch/libhvqm4_kernels_<sha>.so
-         csrc/intra.cu csrc/inter.cu
+         csrc/intra.cu csrc/inter.cu csrc/csc.cu
 
 The library is built at first use, into `build/` beside the package (a
 directory git ignores), and named by the sha256 of its sources and flags, so
@@ -30,7 +30,7 @@ import subprocess
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 _HEADERS = ("common.cuh",)
-_SOURCES = ("intra.cu", "inter.cu")
+_SOURCES = ("intra.cu", "inter.cu", "csc.cu")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "hvqm4_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -145,7 +145,8 @@ def stream_ptr(device) -> int:
 
 def kernels() -> list[Kernel]:
     """Every kernel entry point of the port."""
+    from .csc import YUV_TO_RGB
     from .inter import INTER_COMBINE
     from .intra import INTRA_SYNTH_ACC, INTRA_SYNTH_NOACC
 
-    return [INTRA_SYNTH_NOACC, INTRA_SYNTH_ACC, INTER_COMBINE]
+    return [INTRA_SYNTH_NOACC, INTRA_SYNTH_ACC, INTER_COMBINE, YUV_TO_RGB]

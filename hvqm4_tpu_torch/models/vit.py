@@ -1,0 +1,156 @@
+"""ViT video encoder on decoded frames (the decode → RGB → resize → ViT path).
+
+The port of `hvqm4_tpu/models/vit.py`, for inference: the parameters are
+frozen. It keeps the JAX model's dtype flow (`gelu`, `attention` and
+`LayerNorm` are each held against the JAX model's part, because a fault in
+them can hide inside the end-to-end bf16 spread):
+
+- bf16 weights and activations; every product takes bf16 operands and
+  accumulates in f32, and its result is rounded to bf16 where JAX casts it;
+- q, k and v in bf16; the scores, `* scale` and the softmax in f32 (the
+  scores are an f32 product of the bf16 q and k, never rounded to bf16),
+  then the probabilities in bf16;
+- LayerNorm in f32 with the population variance and eps inside the rsqrt,
+  output in bf16; the final LayerNorm, then the mean over patches in f32;
+- the tanh GELU, `jax.nn.gelu`'s default.
+
+Attention is an explicit product and softmax, not
+`scaled_dot_product_attention`, which would round the scores elsewhere.
+The f32 score product relies on full-f32 matmuls on the card
+(`torch.backends.cuda.matmul.allow_tf32` is False, PyTorch's default).
+
+Parameter layout: `wq`, `wk`, `wv` (d, nh, hd) are stored as (d, nh·hd),
+`wo` (nh, hd, d) as (nh·hd, d); `convert.vit_params_to_torch` carries the
+JAX pytree across.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+BF16 = torch.bfloat16
+
+
+@dataclasses.dataclass(frozen=True)
+class ViTConfig:
+    image_size: int = 224
+    patch_size: int = 16
+    dim: int = 384
+    depth: int = 6
+    heads: int = 6
+    mlp_ratio: int = 4
+
+    @property
+    def n_patches(self) -> int:
+        return (self.image_size // self.patch_size) ** 2
+
+    @property
+    def head_dim(self) -> int:
+        return self.dim // self.heads
+
+
+def gelu(x):
+    """`jax.nn.gelu`'s default, the tanh form (torch's default is erf)."""
+    return F.gelu(x, approximate="tanh")
+
+
+def attention(q, k, v):
+    """Softmax attention, (B, nh, P, hd) bf16 → bf16. The scores are the f32
+    product of the bf16 q and k, never rounded to bf16; `* scale` and the
+    softmax run in f32, the probabilities in bf16."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    att = (q.float() @ k.float().transpose(-1, -2)) * scale
+    return torch.softmax(att, dim=-1).to(BF16) @ v
+
+
+def _frozen(*shape, dtype=BF16) -> nn.Parameter:
+    return nn.Parameter(torch.zeros(shape, dtype=dtype), requires_grad=False)
+
+
+class LayerNorm(nn.Module):
+    """f32 LayerNorm → bf16, as the JAX `_ln`."""
+
+    def __init__(self, d: int):
+        super().__init__()
+        self.g = nn.Parameter(torch.ones(d), requires_grad=False)
+        self.b = nn.Parameter(torch.zeros(d), requires_grad=False)
+
+    def forward(self, x):
+        x = x.to(torch.float32)
+        mu = x.mean(-1, keepdim=True)
+        var = x.var(-1, keepdim=True, unbiased=False)
+        return ((x - mu) * torch.rsqrt(var + 1e-6) * self.g + self.b).to(BF16)
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: ViTConfig):
+        super().__init__()
+        d, mlp = cfg.dim, cfg.mlp_ratio * cfg.dim
+        self.ln1 = LayerNorm(d)
+        self.wq, self.wk, self.wv = (_frozen(d, d) for _ in range(3))
+        self.wo = _frozen(d, d)
+        self.ln2 = LayerNorm(d)
+        self.w1, self.b1 = _frozen(d, mlp), _frozen(mlp)
+        self.w2, self.b2 = _frozen(mlp, d), _frozen(d)
+
+
+class ViT(nn.Module):
+    """(B, H, W, 3) f32 in [0, 1] → (B, dim) f32 pooled embeddings."""
+
+    def __init__(self, cfg: ViTConfig):
+        super().__init__()
+        self.cfg = cfg
+        d, patch_in = cfg.dim, 3 * cfg.patch_size ** 2
+        self.patch_w = _frozen(patch_in, d)
+        self.patch_b = _frozen(d)
+        self.pos = _frozen(cfg.n_patches, d)
+        self.ln_f = LayerNorm(d)
+        self.blocks = nn.ModuleList(Block(cfg) for _ in range(cfg.depth))
+
+    def forward(self, images):
+        cfg = self.cfg
+        B = images.shape[0]
+        ps, nh, hd = cfg.patch_size, cfg.heads, cfg.head_dim
+        g = cfg.image_size // ps
+        # patch vectors ordered (py, px, c), as vit.py:91-92
+        x = images.reshape(B, g, ps, g, ps, 3).permute(0, 1, 3, 2, 4, 5)
+        x = x.reshape(B, g * g, ps * ps * 3).to(BF16)
+        x = x @ self.patch_w + self.patch_b + self.pos
+
+        def heads(t):  # (B, P, nh·hd) → (B, nh, P, hd)
+            return t.reshape(B, -1, nh, hd).transpose(1, 2)
+
+        for blk in self.blocks:
+            h = blk.ln1(x)
+            q, k, v = heads(h @ blk.wq), heads(h @ blk.wk), heads(h @ blk.wv)
+            o = attention(q, k, v).transpose(1, 2).reshape(B, -1, nh * hd)
+            x = x + o @ blk.wo
+            x = x + gelu(blk.ln2(x) @ blk.w1 + blk.b1) @ blk.w2
+        return self.ln_f(x).to(torch.float32).mean(dim=1)
+
+
+def init_vit(cfg: ViTConfig, generator: torch.Generator, device) -> ViT:
+    """A ViT with weights ~ normal / sqrt(fan_in) in bf16, biases at zero
+    and LayerNorms at ones and zeros, as the JAX `init_vit`. The weights are
+    drawn on the CPU from `generator` and then moved, so they do not depend
+    on the device; they are not the JAX package's (its PRNG differs)."""
+    model = ViT(cfg)
+    d, mlp = cfg.dim, cfg.mlp_ratio * cfg.dim
+
+    def dense(p: nn.Parameter, fan_in: int) -> None:
+        w = torch.randn(p.shape, generator=generator, dtype=torch.float32)
+        p.copy_((w / math.sqrt(fan_in)).to(BF16))
+
+    with torch.no_grad():
+        dense(model.patch_w, 3 * cfg.patch_size ** 2)
+        dense(model.pos, d)
+        for blk in model.blocks:
+            for p in (blk.wq, blk.wk, blk.wv, blk.wo, blk.w1):
+                dense(p, d)
+            dense(blk.w2, mlp)
+    return model.to(device)

@@ -1,5 +1,6 @@
-"""On the card: the CUDA kernels against their plain versions, and the
-session on `cuda` against the C oracle.
+"""On the card: the CUDA kernels against their plain versions, the session
+on `cuda` against the C oracle, and the decode service on `cuda` against
+the same service on the CPU.
 
 Every test here needs a CUDA card and skips without one. The file imports
 no JAX, so it also runs where JAX is not installed; tests/conftest.py
@@ -10,15 +11,19 @@ imports JAX, so run it there without the conftest:
 
 import pathlib
 import subprocess
+import threading
 
 import numpy as np
 import pytest
 import torch
 
 from chip_smoke import random_plan
+from hvqm4_tpu_torch import serve
 from hvqm4_tpu_torch.convert import plan_to_torch
 from hvqm4_tpu_torch.host import SeqConfig
 from hvqm4_tpu_torch.kernels import _build
+from hvqm4_tpu_torch.kernels.csc import (YUV_TO_RGB, yuv_to_rgb,
+                                         yuv_to_rgb_plain)
 from hvqm4_tpu_torch.kernels.inter import inter_combine, inter_combine_plain
 from hvqm4_tpu_torch.kernels.intra import intra_synth, intra_synth_plain
 from hvqm4_tpu_torch.session import DecoderSession
@@ -74,7 +79,7 @@ def test_cuda_kernels_match_plain(cuda, n, bh, bw, nest_shape, mv_grid):
     assert torch.equal(out, inter_combine_plain(tp, want_px, want_acc,
                                                 ref0, ref1))
     assert [k.launches - b for k, b in zip(_build.kernels(), before)] \
-        == [1, 1, 1]
+        == [1, 1, 1, 0]  # noacc, acc, inter; no yuv_to_rgb
 
 
 @pytest.mark.cuda
@@ -111,3 +116,74 @@ def test_cuda_session_matches_oracle(cuda, tmp_path):
         got = b"".join(f.yuv_bytes()
                        for f in DecoderSession(cfg, cuda).decode_clip(clip))
         assert got == out.read_bytes(), (w, h, gops, seed)
+
+
+# (n or None for no stream axis, H, W, sampling): ragged pixel counts that
+# are no multiple of the 256-thread tile, both samplings, 640x480 at N=8
+CSC_CASES = [(None, 36, 48, 2), (3, 74, 102, 2), (2, 30, 26, 1),
+             (8, 480, 640, 2), (8, 480, 640, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,samp", CSC_CASES)
+def test_cuda_yuv_to_rgb_matches_plain(cuda, n, h, w, samp):
+    rng = np.random.default_rng(h + w + samp)
+    lead = (n,) if n else ()
+    y = torch.from_numpy(rng.integers(0, 256, (*lead, h, w),
+                                      dtype=np.uint8)).to(cuda)
+    u, v = (torch.from_numpy(rng.integers(
+        0, 256, (*lead, h // samp, w // samp), dtype=np.uint8)).to(cuda)
+        for _ in range(2))
+    before = YUV_TO_RGB.launches
+    got = yuv_to_rgb(y, u, v, samp, samp)
+    torch.cuda.synchronize()
+    assert YUV_TO_RGB.launches == before + 1
+    assert got.shape == (*lead, h, w, 3) and got.dtype == torch.uint8
+    assert torch.equal(got, yuv_to_rgb_plain(y, u, v, samp, samp))
+
+
+@pytest.mark.cuda
+def test_cuda_yuv_to_rgb_rejects_bad_inputs(cuda):
+    y = torch.zeros((2, 16, 16), dtype=torch.uint8, device=cuda)
+    c = torch.zeros((2, 8, 8), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="u: expected"):
+        yuv_to_rgb(y, c.int(), c, 2, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        yuv_to_rgb(y.transpose(1, 2).contiguous().transpose(1, 2), c, c, 2, 2)
+    with pytest.raises(ValueError, match="v: expected"):
+        yuv_to_rgb(y, c, c.cpu(), 2, 2)
+    with pytest.raises(ValueError, match="sampling"):
+        yuv_to_rgb(y, c, c, 2, 1)
+    with pytest.raises(ValueError, match="chroma"):
+        yuv_to_rgb(y, c, c, 1, 1)
+
+
+@pytest.mark.cuda
+def test_cuda_serve_matches_cpu_serve(cuda):
+    """YUV and RGB replies of the server on the card equal the CPU
+    server's; embeddings agree within the ViT's bf16 tolerance."""
+    from hvqm4_tpu_torch.models.vit import ViTConfig, init_vit
+
+    vcfg = ViTConfig(32, 8, 64, 2, 4)
+    servers = []
+    for dev in (cuda, "cpu"):
+        srv = serve.DecodeServer(("127.0.0.1", 0), device=dev, vit_cfg=vcfg)
+        srv._vit = (vcfg, init_vit(vcfg, torch.Generator().manual_seed(1),
+                                   dev))
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        servers.append(srv)
+    try:
+        clip = make_clip(SeqConfig(64, 48), ["IPBPB", "IP"], seed=8)
+        gpu, cpu = ([serve.decode_remote(*s.server_address, clip, mode=m)
+                     for m in (serve.MODE_YUV, serve.MODE_RGB,
+                               serve.MODE_EMBED)] for s in servers)
+        assert gpu[:2] == cpu[:2]
+        assert len(gpu[2]) == len(cpu[2]) == 7
+        for a, b in zip(gpu[2], cpu[2]):
+            a, b = np.frombuffer(a, "<f4"), np.frombuffer(b, "<f4")
+            assert np.abs(a - b).max() <= 2e-2
+            assert a @ b / np.linalg.norm(a) / np.linalg.norm(b) >= 0.9999
+    finally:
+        for s in servers:
+            s.shutdown()
+            s.server_close()

@@ -122,4 +122,4 @@ def test_library_named_by_source_hash():
     assert path.name.startswith("libhvqm4_kernels_") and path.suffix == ".so"
     assert {k.symbol for k in _build.kernels()} == {
         "hvqm4_intra_synth_acc", "hvqm4_intra_synth_noacc",
-        "hvqm4_inter_combine"}
+        "hvqm4_inter_combine", "hvqm4_yuv_to_rgb"}

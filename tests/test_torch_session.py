@@ -232,8 +232,11 @@ def test_cli_without_cuda_fails_with_one_line(capsys, clip_path):
 _NO_JAX = r"""
 import sys
 sys.modules["jax"] = None   # any `import jax` now raises ImportError
+import threading
 from hvqm4_tpu.config import SeqConfig
-from hvqm4_tpu_torch import cli
+from hvqm4_tpu_torch import cli, serve
+from hvqm4_tpu_torch.models import vit
+from hvqm4_tpu_torch.ops import csc
 from hvqm4_tpu_torch.session import DecoderSession
 from hvqm4_tpu_torch.parallel.multistream import decode_lockstep
 from tools.encoder import make_clip
@@ -242,9 +245,15 @@ clip = make_clip(cfg, ["IPB"], seed=77)
 frames = [f.yuv_bytes() for f in DecoderSession(cfg, "cpu").decode_clip(clip)]
 steps = list(decode_lockstep(cfg, [clip], "cpu"))
 assert len(frames) == len(steps) == 3
+srv = serve.DecodeServer(("127.0.0.1", 0), device="cpu")
+threading.Thread(target=srv.serve_forever, daemon=True).start()
+rgb = serve.decode_remote(*srv.server_address, clip, mode=serve.MODE_RGB)
+srv.shutdown()
+srv.server_close()
+assert [len(c) for c in rgb] == [32 * 16 * 3] * 3
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
 assert loaded == ["jax"], loaded   # only the blocker itself
-print("ok", len(frames))
+print("ok", len(frames), len(rgb))
 """
 
 
@@ -253,4 +262,4 @@ def test_port_never_imports_jax():
     res = subprocess.run([sys.executable, "-c", _NO_JAX], env=env, cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-2000:]
-    assert res.stdout.strip() == "ok 3"
+    assert res.stdout.strip() == "ok 3 3"
