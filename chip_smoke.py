@@ -10,10 +10,13 @@ Phases, in order; any failure exits non-zero before the result line:
 2. build: the CUDA kernels (nvcc, sm_90a), the C oracle and the C++ planner,
    with their build seconds and nvcc's register/shared-memory report.
 3. kernels vs plain: every CUDA entry point against its plain PyTorch
-   version on the card, exact: the decode kernels on random plans at the
-   640x480 block grids with N=8 streams, both nest orientations, per-block
-   and per-MB vector grids; `yuv_to_rgb` on random planes at 480x640, N=8,
-   4:2:0 and 4:4:4, at a ragged 250x90, and in the 2-D form.
+   version on the card, exact: the decode kernels on random plans
+   (`DECODE_CASES`) at the 640x480 block grids with N = 1, 8 and 33, at
+   ragged grids (45 and 46 blocks wide, 13 and 14 high), with windows
+   straddling every border and vectors of +-2,000, both nest orientations,
+   per-block and per-MB vector grids, and `inter_combine` refusing a
+   per-pixel grid; `yuv_to_rgb` on random planes at 480x640, N=8, 4:2:0
+   and 4:4:4, at a ragged 250x90, and in the 2-D form.
 4. session: testdata/ref640.h4m and retail640.h4m (28 frames each) through
    `DecoderSession` on cuda; every frame's on-device csum must equal
    `oracle --csum`, and retail640's FNV-1a hashes `oracle --hash`.
@@ -28,11 +31,17 @@ Phases, in order; any failure exits non-zero before the result line:
    replies), then metrics. Every kernel, `yuv_to_rgb` included, must have
    launched during this phase. Then request latencies and the ViT's time
    per frame.
-7. times: kernel and plain times (CUDA events, 3 warm-ups, median of 20),
+7. times: kernel and plain times (CUDA events, 3 warm-ups, median of 20;
+   the profiler's device time per call), the decode kernels at both
+   640x480 grids with N = 1, 8 and 32, each beside its bound: the bytes
+   this data needs (`intra_bytes`, `inter_bytes`) over 3.35 TB/s. Then
    session and lock-step frame rates, host planning timed separately.
 
-`launches` in the kernels line is the sum of the counted phases 4-5 and 6.
-The line before the last is a JSON object of the kernels; the last line is
+`launches` in the kernels line is the sum of the counted phases 4-5 and 6;
+its times are the luma grid's (480x640 for `yuv_to_rgb`) at N=8. Before
+the last lines the script fails if any module of JAX or of `hvqm4_tpu` was
+imported. The line before the last is a JSON object of the kernels; the
+last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -114,12 +123,53 @@ def random_plan(rng, bh: int, bw: int, n: int, grid: tuple) -> dict:
     }
 
 
+def border_vectors(rng, plan: dict) -> dict:
+    """Make every block inter, with every refsel, and give it small vectors
+    (-9..9, every half-pel phase) so that the blocks along each border
+    read windows that straddle it; every 7th backward vector component is
+    +-2000, far outside the plane. Per-block vector grids only."""
+    n, bh, bw = plan["meta"].shape
+    sel = rng.integers(0, 4, (n, bh, bw))
+    plan["meta"] = ((plan["meta"] & 7) | (sel << 3) | (1 << 5)).astype(
+        np.uint8)
+    combos = np.stack(np.meshgrid(np.arange(-9, 10), np.arange(-9, 10)),
+                      -1).reshape(-1, 2)
+    k = rng.permutation(n * bh * bw) % len(combos)
+    plan["mv"] = np.ascontiguousarray(
+        combos[k].reshape(n, bh, bw, 2).transpose(0, 3, 1, 2), np.int16)
+    mv2 = plan["mv"][:, :, ::-1, ::-1].copy()
+    mv2.reshape(-1)[::7] = rng.choice([-2000, 2000], mv2.reshape(-1)[::7].size)
+    plan["mv2"] = mv2
+    return plan
+
+
 def max_err(a, b) -> int:
     return int((a.long() - b.long()).abs().max())
 
 
+# Phase 3's decode cases: (N, block grid, nest, vector grid, vectors). The
+# 640x480 grids at N = 1, 8 and 33, both nests and both vector grids; a
+# block width that is no multiple of a warp's 32 blocks and a band of rows
+# that is no multiple of a thread block's 8 (45 and 13, 46 and 14); every
+# block inter with windows straddling each border.
+DECODE_CASES = [
+    (8, (120, 160), (38, 70), "block", "random"),
+    (8, (120, 160), (70, 38), "mb", "random"),
+    (8, (60, 80), (38, 70), "mb", "random"),
+    (8, (60, 80), (70, 38), "block", "random"),
+    (1, (120, 160), (70, 38), "block", "random"),
+    (1, (60, 80), (38, 70), "mb", "random"),
+    (33, (60, 80), (70, 38), "block", "random"),
+    (33, (14, 46), (38, 70), "mb", "random"),
+    (1, (13, 45), (70, 38), "block", "random"),
+    (8, (12, 20), (38, 70), "block", "border"),
+]
+
+
 def phase_kernels(dev) -> dict:
-    """Phase 3: each kernel against its plain version, exact."""
+    """Phase 3: each kernel against its plain version, exact. The random
+    descriptor words carry nest offsets up to 127, beyond both nest sides
+    (38 and 70), so the kernels' modular addressing wraps."""
     import torch
 
     from hvqm4_tpu_torch.convert import plan_to_torch
@@ -129,16 +179,16 @@ def phase_kernels(dev) -> dict:
 
     rng = np.random.default_rng(2024)
     err = {"intra_synth_noacc": 0, "intra_synth_acc": 0, "inter_combine": 0}
-    cases = [((120, 160), (38, 70), (120, 160)),
-             ((120, 160), (70, 38), (60, 80)),
-             ((60, 80), (38, 70), (30, 40)),
-             ((60, 80), (70, 38), (60, 80))]
-    for (bh, bw), nest_shape, grid in cases:
-        plan = plan_to_torch(random_plan(rng, bh, bw, N_STREAMS, grid), dev)
+    for n, (bh, bw), nest_shape, vgrid, vectors in DECODE_CASES:
+        grid = (bh, bw) if vgrid == "block" else (bh // 2, bw // 2)
+        p = random_plan(rng, bh, bw, n, grid)
+        if vectors == "border":
+            p = border_vectors(rng, p)
+        plan = plan_to_torch(p, dev)
         nest = torch.from_numpy(rng.integers(
-            0, 256, (N_STREAMS, *nest_shape), dtype=np.uint8)).to(dev)
+            0, 256, (n, *nest_shape), dtype=np.uint8)).to(dev)
         ref0, ref1 = (torch.from_numpy(rng.integers(
-            0, 256, (N_STREAMS, bh * 4, bw * 4), dtype=np.uint8)).to(dev)
+            0, 256, (n, bh * 4, bw * 4), dtype=np.uint8)).to(dev)
             for _ in range(2))
         want_px, want_acc = intra_synth_plain(plan, nest, want_acc=True)
         got_px, _ = intra_synth(plan, nest, want_acc=False)
@@ -152,9 +202,17 @@ def phase_kernels(dev) -> dict:
         got = inter_combine(plan, got_px, got_acc, ref0, ref1)
         err["inter_combine"] = max(err["inter_combine"], max_err(got, want))
         torch.cuda.synchronize()
-        print(f"kernels vs plain: grid {bh}x{bw} nest {nest_shape[0]}x"
-              f"{nest_shape[1]} vectors {grid[0]}x{grid[1]} N={N_STREAMS}: "
+        print(f"kernels vs plain: grid {bh}x{bw} N={n} nest {nest_shape[0]}x"
+              f"{nest_shape[1]} vectors {grid[0]}x{grid[1]} {vectors}: "
               f"max_abs_err {err}")
+    # one vector per pixel is finer than the kernel's one per block
+    fine = {**plan, "mv": torch.zeros((n, 2, bh * 4, bw * 4),
+                                      dtype=torch.int16, device=dev)}
+    try:
+        inter_combine(fine, got_px, got_acc, ref0, ref1)
+        fail("inter_combine took a per-pixel vector grid")
+    except ValueError as e:
+        print(f"kernels: inter_combine refuses a per-pixel grid ({e})")
     # (n or None for the 2-D form, H, W, sampling); 250x90 is no multiple
     # of the 256-thread tile nor of the JAX kernel's 64-row tile
     err["yuv_to_rgb"] = 0
@@ -188,9 +246,9 @@ def random_yuv(rng, n, h: int, w: int, samp: int, dev) -> list:
 
 def phase_session(dev, clips: dict, oracle: Path, want_csums: dict) -> None:
     """Phase 4: DecoderSession on the card against the C oracle."""
-    from hvqm4_tpu_torch.host import Demuxer, fnv1a
+    from hvqm4_tpu_torch.container import Demuxer
     from hvqm4_tpu_torch.session import DecoderSession
-    from hvqm4_tpu_torch.utils.hashing import frame_csum
+    from hvqm4_tpu_torch.utils.hashing import fnv1a, frame_csum
 
     for name, data in clips.items():
         path = REPO / "testdata" / name
@@ -229,7 +287,7 @@ def phase_lockstep(cfg, clips: dict, dev, want: dict) -> None:
     """Phase 5: 8 streams through `decode_lockstep` (per-stream
     NativePlanner, stacked per step, `multi_frame_step`); every frame of
     every stream against the oracle."""
-    from hvqm4_tpu_torch.host import NativePlanner
+    from hvqm4_tpu_torch.native import NativePlanner
     from hvqm4_tpu_torch.parallel.multistream import decode_lockstep
     from hvqm4_tpu_torch.utils.hashing import batch_csum
 
@@ -252,7 +310,7 @@ def lockstep_steps(cfg, clips: dict, dev) -> list:
     """The host half of lock-step decode, done ahead for timing: every
     step's stacked inputs, already on the card, with its frame count."""
     from hvqm4_tpu_torch.convert import stack_plans
-    from hvqm4_tpu_torch.host import NativePlanner
+    from hvqm4_tpu_torch.native import NativePlanner
     from hvqm4_tpu_torch.parallel.multistream import plan_steps
 
     return [(stack_plans(cfg, plans, dev), sum(p is not None for p in plans))
@@ -274,14 +332,119 @@ def run_lockstep(cfg, steps, dev) -> None:
     torch.cuda.synchronize()
 
 
-def phase_times(dev, cfg, clips: dict, tag: str) -> dict:
-    """Phase 7 timings: the decode kernels vs plain at the 640x480 grids
-    with N=8, `yuv_to_rgb` vs plain at 480x640 with N=1 and N=8, then the
-    session and lock-step frame rates."""
+HBM_BYTES_PER_S = 3.35e12  # one H100 SXM, NVIDIA's data sheet
+TIME_NS = (1, N_STREAMS, 32)  # N=32 luma moves more than the 50 MB L2
+
+
+def intra_bytes(plan, nest, want_acc: bool) -> tuple:
+    """(bytes this plan needs, bytes of the whole arrays) of one
+    `intra_synth` call, each input read once and each output written once.
+    A block reads its descriptor words up to its basis count, raw pixels
+    only in mode 6, DCs unless it is a raw block or the neighbour of a
+    mode-0 block; meta, the nest and the outputs are whole."""
     import torch
 
+    meta = plan["meta"].long()
+    mode, cls_ = meta & 7, (meta >> 5) & 1
+    count = torch.where((cls_ != 0) | ((mode >= 1) & (mode <= 4)), mode,
+                        torch.zeros_like(mode))
+    m0 = mode == 0
+    dc_need = mode != 6
+    dc_need[..., 1:, :] |= m0[..., :-1, :]
+    dc_need[..., :-1, :] |= m0[..., 1:, :]
+    dc_need[..., :, 1:] |= m0[..., :, :-1]
+    dc_need[..., :, :-1] |= m0[..., :, 1:]
+    npix = plan["raw"].numel()
+    out = npix * (5 if want_acc else 1)
+    need = (meta.numel() + int(dc_need.sum()) + 4 * int(count.clamp(max=4).sum())
+            + 16 * int((mode == 6).sum()) + nest.numel() + out)
+    whole = sum(plan[k].numel() * plan[k].element_size()
+                for k in ("meta", "dc", "desc", "raw")) + nest.numel() + out
+    return need, whole
+
+
+def _block_vectors(grid, bh: int, bw: int):
+    """(N, 2, gh, gw) vectors → per-block (mvx, mvy), each (N, bh, bw)."""
+    import torch
+
+    gh, gw = grid.shape[-2:]
+    rows = torch.arange(bh, device=grid.device) * gh // bh
+    cols = torch.arange(bw, device=grid.device) * gw // bw
+    v = grid.long()[:, :, rows][:, :, :, cols]
+    return v[:, 0], v[:, 1]
+
+
+def _window_bytes(reads, ph: int, pw: int) -> int:
+    """Distinct bytes of one (N, ph, pw) reference plane that the half-pel
+    windows read: `reads` is [(block mask, mvx, mvy)], each (N, bh, bw);
+    a window is (4 + hy) x (4 + hx) bytes, clamped to the plane."""
+    import torch
+
+    seen = None
+    for need, mvx, mvy in reads:
+        n, bh, bw = need.shape
+        dev = need.device
+        if seen is None:
+            seen = torch.zeros((n, ph * pw), dtype=torch.bool, device=dev)
+        r = torch.arange(5, device=dev)
+        iy = (torch.arange(bh, device=dev)[:, None] * 4 + (mvy >> 1))
+        ix = (torch.arange(bw, device=dev)[None, :] * 4 + (mvx >> 1))
+        rows = (iy[..., None] + r).clamp(0, ph - 1)
+        cols = (ix[..., None] + r).clamp(0, pw - 1)
+        ok = (need[..., None, None] & (r < 4 + (mvy & 1)[..., None])[..., :, None]
+              & (r < 4 + (mvx & 1)[..., None])[..., None, :])
+        idx = rows[..., :, None] * pw + cols[..., None, :]
+        stream = torch.arange(n, device=dev)[:, None, None, None, None]
+        seen[stream.expand_as(idx)[ok], idx[ok]] = True
+    return int(seen.sum())
+
+
+def inter_bytes(plan, ref0, ref1) -> tuple:
+    """(bytes this plan needs, bytes of the whole arrays) of one
+    `inter_combine` call. An intra block reads its 16 intra bytes; an inter
+    block its 64 acc bytes, its vector (and the backward one when it
+    blends) and the distinct reference bytes of its windows; meta and the
+    output are whole."""
+    import torch
+
+    meta = plan["meta"].long()
+    inter, sel = ((meta >> 5) & 1) == 1, (meta >> 3) & 3
+    n, bh, bw = meta.shape
+    ph, pw = ref0.shape[-2:]
+    mvx, mvy = _block_vectors(plan["mv"], bh, bw)
+    m2x, m2y = _block_vectors(plan["mv2"], bh, bw)
+    blend = inter & (sel >= 2)
+
+    def cells(mask, grid):  # vector cells that a block of `mask` reads
+        gh, gw = grid.shape[-2:]
+        rows = torch.arange(bh, device=mask.device) * gh // bh
+        cols = torch.arange(bw, device=mask.device) * gw // bw
+        used = torch.zeros((n, gh, gw), dtype=torch.bool, device=mask.device)
+        s, y, x = mask.nonzero(as_tuple=True)
+        used[s, rows[y], cols[x]] = True
+        return int(used.sum())
+
+    need = (meta.numel() + 16 * int((~inter).sum()) + 64 * int(inter.sum())
+            + 4 * cells(inter, plan["mv"]) + 4 * cells(blend, plan["mv2"])
+            + _window_bytes([(inter & (sel != 1), mvx, mvy)], ph, pw)
+            + _window_bytes([(inter & (sel == 1), mvx, mvy),
+                             (blend, m2x, m2y)], ph, pw)
+            + n * ph * pw)
+    whole = (sum(plan[k].numel() * plan[k].element_size()
+                 for k in ("meta", "mv", "mv2"))
+             + n * ph * pw * (1 + 4 + 1 + 1 + 1))
+    return need, whole
+
+
+def phase_times(dev, cfg, clips: dict, tag: str) -> dict:
+    """Phase 7 timings: the decode kernels vs plain at the 640x480 grids
+    with N = 1, 8 and 32, each beside its bound; `yuv_to_rgb` vs plain at
+    480x640 with N=1 and N=8; then the session and lock-step frame rates.
+    Returns, per kernel, the luma (or 480x640) N=8 figures."""
+    import torch
+
+    from hvqm4_tpu_torch.container import Demuxer
     from hvqm4_tpu_torch.convert import plan_to_torch
-    from hvqm4_tpu_torch.host import Demuxer
     from hvqm4_tpu_torch.kernels.csc import yuv_to_rgb, yuv_to_rgb_plain
     from hvqm4_tpu_torch.kernels.inter import inter_combine, inter_combine_plain
     from hvqm4_tpu_torch.kernels.intra import intra_synth, intra_synth_plain
@@ -289,46 +452,56 @@ def phase_times(dev, cfg, clips: dict, tag: str) -> dict:
 
     rng = np.random.default_rng(7)
     times = {}
-    for bh, bw in GRIDS_640:
-        plan = plan_to_torch(random_plan(rng, bh, bw, N_STREAMS, (bh, bw)),
-                             dev)
-        nest = torch.from_numpy(rng.integers(
-            0, 256, (N_STREAMS, 38, 70), dtype=np.uint8)).to(dev)
-        ref = torch.from_numpy(rng.integers(
-            0, 256, (N_STREAMS, bh * 4, bw * 4), dtype=np.uint8)).to(dev)
-        px, acc = intra_synth(plan, nest, want_acc=True)
-        pairs = {
-            "intra_synth_noacc": (lambda: intra_synth(plan, nest, False),
-                                  lambda: intra_synth_plain(plan, nest, False)),
-            "intra_synth_acc": (lambda: intra_synth(plan, nest, True),
-                                lambda: intra_synth_plain(plan, nest, True)),
-            "inter_combine": (
-                lambda: inter_combine(plan, px, acc, ref, ref),
-                lambda: inter_combine_plain(plan, px, acc, ref, ref)),
-        }
-        for name, (kern, plain) in pairs.items():
-            # plain, kernel, kernel, plain: the two halves bracket drift
-            p1, k1, k2, p2 = (cuda_ms(plain), cuda_ms(kern), cuda_ms(kern),
-                              cuda_ms(plain))
-            k, p = min(k1, k2), min(p1, p2)
-            times.setdefault(name, (k, p))  # the luma grid goes in the JSON
-            print(f"time {name} grid {bh}x{bw} N={N_STREAMS}: kernel "
-                  f"{k:.4f} ms, plain {p:.4f} ms ({p / k:.1f}x) per call; "
-                  f"device only: kernel {device_us_per_call(kern)}, plain "
-                  f"{device_us_per_call(plain)} [{tag}]")
 
-    for n in (1, N_STREAMS):
-        y, u, v = random_yuv(rng, n, 480, 640, 2, dev)
-        kern = lambda: yuv_to_rgb(y, u, v, 2, 2)  # noqa: E731
-        plain = lambda: yuv_to_rgb_plain(y, u, v, 2, 2)  # noqa: E731
+    def timed(name, kern, plain, nbytes, what, keep):
+        # plain, kernel, kernel, plain: the two halves bracket drift
         p1, k1, k2, p2 = (cuda_ms(plain), cuda_ms(kern), cuda_ms(kern),
                           cuda_ms(plain))
         k, p = min(k1, k2), min(p1, p2)
-        times["yuv_to_rgb"] = (k, p)  # N=8 goes in the JSON
-        print(f"time yuv_to_rgb 480x640 4:2:0 N={n}: kernel {k:.4f} ms, "
-              f"plain {p:.4f} ms ({p / k:.1f}x) per call; device only: "
-              f"kernel {device_us_per_call(kern)}, plain "
-              f"{device_us_per_call(plain)} [{tag}]")
+        dev_us, plain_us = device_us_per_call(kern), device_us_per_call(plain)
+        need, whole = nbytes
+        bound_us = need / HBM_BYTES_PER_S * 1e6
+        share = (f"{100 * bound_us / dev_us:.1f}% of it" if dev_us
+                 else "share not measured")
+        print(f"time {name} {what}: kernel {k:.4f} ms, plain {p:.4f} ms "
+              f"({p / k:.1f}x) per call; device only: kernel {fmt_us(dev_us)}"
+              f", plain {fmt_us(plain_us)}; bound {bound_us:.2f} us "
+              f"({need / 1e6:.3f} MB this data needs; the whole arrays "
+              f"{whole / 1e6:.3f} MB = "
+              f"{whole / HBM_BYTES_PER_S * 1e6:.2f} us), {share} [{tag}]")
+        if keep:
+            times[name] = {"ms": k, "plain_ms": p, "bound_us": bound_us,
+                           "device_us": dev_us}
+
+    for bh, bw in GRIDS_640:
+        for n in TIME_NS:
+            plan = plan_to_torch(random_plan(rng, bh, bw, n, (bh, bw)), dev)
+            nest = torch.from_numpy(rng.integers(
+                0, 256, (n, 38, 70), dtype=np.uint8)).to(dev)
+            ref0, ref1 = (torch.from_numpy(rng.integers(
+                0, 256, (n, bh * 4, bw * 4), dtype=np.uint8)).to(dev)
+                for _ in range(2))
+            px, acc = intra_synth(plan, nest, want_acc=True)
+            what = f"grid {bh}x{bw} N={n}"
+            keep = (bh, bw) == GRIDS_640[0] and n == N_STREAMS
+            for want_acc in (False, True):
+                timed(f"intra_synth_{'acc' if want_acc else 'noacc'}",
+                      lambda: intra_synth(plan, nest, want_acc),
+                      lambda: intra_synth_plain(plan, nest, want_acc),
+                      intra_bytes(plan, nest, want_acc), what, keep)
+            timed("inter_combine",
+                  lambda: inter_combine(plan, px, acc, ref0, ref1),
+                  lambda: inter_combine_plain(plan, px, acc, ref0, ref1),
+                  inter_bytes(plan, ref0, ref1), what, keep)
+            del plan, nest, ref0, ref1, px, acc
+            torch.cuda.empty_cache()
+
+    for n in (1, N_STREAMS):
+        y, u, v = random_yuv(rng, n, 480, 640, 2, dev)
+        nbytes = 4 * y.numel() + u.numel() + v.numel()  # Y, U, V in; RGB out
+        timed("yuv_to_rgb", lambda: yuv_to_rgb(y, u, v, 2, 2),
+              lambda: yuv_to_rgb_plain(y, u, v, 2, 2), (nbytes, nbytes),
+              f"480x640 4:2:0 N={n}", n == N_STREAMS)
 
     for name, data in clips.items():
         sess = DecoderSession(Demuxer(data).info.cfg, dev, profile=True)
@@ -428,8 +601,8 @@ def phase_serve(dev, cfg, clips: dict, oracle: Path, kernels: list,
     import torch
 
     from hvqm4_tpu_torch import serve
-    from hvqm4_tpu_torch.host import fnv1a
     from hvqm4_tpu_torch.ops.csc import resize_bilinear
+    from hvqm4_tpu_torch.utils.hashing import fnv1a
 
     modes = {"yuv": serve.MODE_YUV, "rgb": serve.MODE_RGB,
              "embed": serve.MODE_EMBED}
@@ -517,12 +690,12 @@ def phase_serve(dev, cfg, clips: dict, oracle: Path, kernels: list,
         with torch.inference_mode():
             print(f"time vit: {cuda_ms(lambda: model(img)):.4f} ms per frame "
                   f"(224x224, dim {vcfg.dim}, depth {vcfg.depth}, batch 1); "
-                  f"device only {device_us_per_call(lambda: model(img))} "
+                  f"device only {fmt_us(device_us_per_call(lambda: model(img)))} "
                   f"[{tag}]")
             resize = lambda: resize_bilinear(rgb, 224, 224)  # noqa: E731
             print(f"time resize_bilinear 480x640 -> 224x224: "
                   f"{cuda_ms(resize):.4f} ms per frame; device only "
-                  f"{device_us_per_call(resize)} [{tag}]")
+                  f"{fmt_us(device_us_per_call(resize))} [{tag}]")
     finally:
         srv.shutdown()
         srv.server_close()
@@ -570,13 +743,20 @@ def device_profile(fn, what: str, tag: str) -> None:
         print(f"  {us / 1e3:9.3f} ms x{count:<5d} {key[:90]}")
 
 
-def device_us_per_call(fn, calls: int = 20) -> str:
-    """Device time of one call of `fn` (all its kernels), from the
-    profiler over `calls` calls."""
-    res = profile(lambda: [fn() for _ in range(calls)])
-    if res is None:
-        return "not measured"
-    return f"{sum(r[0] for r in res[1]) / calls:.2f} us"
+def device_us_per_call(fn, calls: int = 20):
+    """Device time in us of one call of `fn` (all its kernels), from the
+    profiler over `calls` calls; None when the profiler saw no device. The
+    profiler now and then records no CUDA activity in a window, so a
+    window that shows none is taken once more."""
+    for _ in range(2):
+        res = profile(lambda: [fn() for _ in range(calls)])
+        if res is not None:
+            return sum(r[0] for r in res[1]) / calls
+    return None
+
+
+def fmt_us(us) -> str:
+    return "not measured" if us is None else f"{us:.2f} us"
 
 
 def main() -> int:
@@ -596,8 +776,9 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}")
 
     # phase 2: builds
-    from hvqm4_tpu_torch.host import NativePlanner, SeqConfig
+    from hvqm4_tpu_torch.config import SeqConfig
     from hvqm4_tpu_torch.kernels import _build
+    from hvqm4_tpu_torch.native import NativePlanner
 
     t0 = time.perf_counter()
     lib = _build.build()
@@ -617,7 +798,7 @@ def main() -> int:
     err = phase_kernels(dev)
 
     # phases 4-5: the decode path, counted
-    from hvqm4_tpu_torch.host import oracle_csums
+    from hvqm4_tpu_torch.utils.hashing import oracle_csums
 
     clips = {name: (REPO / "testdata" / name).read_bytes() for name in CLIPS}
     want = {name: oracle_csums(oracle, REPO / "testdata" / name)
@@ -653,13 +834,24 @@ def main() -> int:
     rows = []
     for k in kernels:
         name = k.symbol.removeprefix("hvqm4_")
-        ms, plain_ms = times[name]
+        t = times[name]
+        # no single PyTorch call computes any of these functions, so no
+        # library call is timed beside them
         rows.append({"name": name, "route": "cuda",
                      "source": f"hvqm4_tpu_torch/kernels/csrc/{sources[k.symbol]}",
                      "replaces": k.replaces,
                      "launches": (decode_launches[k.symbol]
                                   + serve_launches[k.symbol]),
-                     "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms})
+                     "max_abs_err": err[name], "ms": t["ms"],
+                     "plain_ms": t["plain_ms"],
+                     "bound_ms": t["bound_us"] / 1e3, "bound_by": "bytes",
+                     "library_ms": None, "bound_us": t["bound_us"],
+                     "device_us": t["device_us"]})
+    # the port runs without JAX: nothing of it may have been imported
+    leaked = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("hvqm4_tpu", "jax", "jaxlib"))
+    if leaked:
+        fail(f"modules of JAX or of the JAX package were imported: {leaked}")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

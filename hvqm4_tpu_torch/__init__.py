@@ -1,8 +1,16 @@
-"""hvqm4_tpu_torch — the PyTorch/CUDA port of the hvqm4_tpu device core.
+"""hvqm4_tpu_torch — the PyTorch/CUDA port of hvqm4_tpu.
 
-The host half (container demux, C++ entropy planner, plan schema, NumPy
-golden decoder, oracle hashing) is shared with `hvqm4_tpu` by import: those
-modules import no JAX. The device half is rewritten here:
+The package imports nothing of `hvqm4_tpu`. Its host half is its own copy of
+the JAX package's JAX-free modules, under the same names, each held against
+its original by `tests/test_torch_host.py`:
+
+- `config`, `container`, `plans`: sequence config, `.h4m` demux, plan schema;
+- `native`: the C++ entropy planner (`_entropy.cc`, byte for byte), built
+  with g++ into `build/` and bound with ctypes;
+- `refdec`: the NumPy golden decoder (the third party of `cli verify`);
+- `utils.profiling`: `StageTimer`.
+
+The device half is rewritten here:
 
 - `convert`: host plan arrays (numpy) → int32/u8/i16 tensors on a device;
 - `ops.device_core`: plane-layout decode in plain PyTorch, routed by device
@@ -12,10 +20,11 @@ modules import no JAX. The device half is rewritten here:
   ctypes;
 - `ops.csc`: YUV→RGB (routed by device) and the bilinear resize;
 - `models.vit`: the ViT encoder, fed from decoded frames;
-- `utils.hashing`: on-device `oracle --csum`;
+- `utils.hashing`: on-device `oracle --csum`, FNV-1a, the oracle's digests;
 - `parallel.multistream`: the lock-step N-stream decode step;
 - `session`, `cli`: the frame-at-a-time API and command line;
-- `serve`: the decode service (YUV, RGB and ViT-embedding requests).
+- `serve`: the decode service (YUV, RGB and ViT-embedding requests), its
+  wire protocol and its clients.
 
 Importing this package imports neither JAX nor the CUDA toolchain.
 """

@@ -20,17 +20,21 @@ import os
 import subprocess
 import sys
 import tempfile
+from fractions import Fraction
 from pathlib import Path
 
 import torch
 
-from .host import (ContainerError, Demuxer, GoldenSession, PlannerError,
-                   _y4m_header, fnv1a)
+from . import refdec
+from .container import ContainerError, Demuxer
+from .native import PlannerError
 from .ops.csc import frame_to_rgb
 from .session import DecoderSession
+from .utils.hashing import fnv1a
 
 PROG = "hvqm4_tpu_torch"
 _ORACLE = Path(__file__).resolve().parent.parent / "oracle" / "hvqm4_oracle"
+_Y4M_CHROMA = {(2, 2): "420jpeg", (2, 1): "422", (1, 1): "444"}
 
 
 class DeviceError(RuntimeError):
@@ -58,6 +62,19 @@ def cmd_info(args) -> int:
     fps = 1e6 / i.usec_per_frame if i.usec_per_frame else 0
     print(f"usec_per_frame={i.usec_per_frame} ({fps:.2f} fps)")
     return 0
+
+
+def _y4m_header(info) -> bytes:
+    """YUV4MPEG2 stream header for this clip's geometry and frame rate."""
+    chroma = _Y4M_CHROMA.get((info.cfg.h_samp, info.cfg.v_samp))
+    if chroma is None:
+        raise ValueError(
+            f"chroma sampling {info.cfg.h_samp}x{info.cfg.v_samp} has no "
+            f"Y4M equivalent")
+    fps = Fraction(1_000_000, info.usec_per_frame)
+    return (f"YUV4MPEG2 W{info.cfg.width} H{info.cfg.height} "
+            f"F{fps.numerator}:{fps.denominator} Ip A1:1 "
+            f"C{chroma}\n").encode()
 
 
 def cmd_decode(args) -> int:
@@ -125,8 +142,8 @@ def cmd_verify(args) -> int:
     dev = _device(args.device)
     data = Path(args.clip).read_bytes()
     cfg = Demuxer(data).info.cfg
-    golden = [f.yuv_bytes() for f in
-              GoldenSession(cfg, backend="numpy").decode_clip(data)]
+    golden = [b"".join(p.tobytes() for p in planes)
+              for planes in refdec.decode_clip(cfg, data)]
     got = [f.yuv_bytes() for f in DecoderSession(cfg, dev).decode_clip(data)]
     ok = golden == got
     print(f"numpy vs torch[{dev}] ({len(got)} frames): "

@@ -14,10 +14,9 @@ A leading stream axis N is kept where the arrays have one.
 The one model on the decode path, the ViT, does have weights:
 `vit_params_to_torch` carries the JAX parameter pytree across.
 
-`pack_meta`, `pack_desc` and `plane_plan_arrays` are copies of the numpy
-helpers in `hvqm4_tpu/ops/device_core.py`, which cannot be imported without
-JAX. They are a temporary duplicate: once the host half of that module moves
-to a JAX-free module, import them from there instead.
+`pack_meta`, `pack_desc` and `plane_plan_arrays` are the port's copies of
+the numpy helpers in `hvqm4_tpu/ops/device_core.py`; the tests hold the
+plain device core that reads their output against the JAX one.
 """
 
 from __future__ import annotations
@@ -25,7 +24,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .host import FramePlan, PlanePlan, SeqConfig
+from .config import SeqConfig
+from .plans import FramePlan, PlanePlan
 
 PLAN_KEYS = ("meta", "dc", "raw", "desc", "mv", "mv2")
 

@@ -119,15 +119,19 @@ MAX_NEST = 4096  # bytes of nest a thread block stages (csrc/common.cuh)
 MAX_STREAMS = 65535  # the grid's y extent: one stream per grid row
 
 
-def require(t, name: str, dtype, shape: tuple, device) -> None:
+def require(t, name: str, dtype, shape: tuple, device, align: int = 1) -> None:
     """Raise unless `t` is a contiguous tensor of this dtype and shape on
-    this device: the kernels take raw pointers and trust all four."""
+    this device, starting on a multiple of `align` bytes: the kernels take
+    raw pointers and trust all five."""
     if t.device != device or t.dtype != dtype or tuple(t.shape) != shape:
         raise ValueError(
             f"{name}: expected {dtype} {shape} on {device}, got "
             f"{t.dtype} {tuple(t.shape)} on {t.device}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: tensor must be contiguous")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name}: data must start on a multiple of {align} "
+                         f"bytes (the kernel reads it in {align}-byte words)")
     if t.dim() == 3 and t.shape[0] > MAX_STREAMS:
         raise ValueError(f"{name}: {t.shape[0]} streams exceed one launch's "
                          f"{MAX_STREAMS}")

@@ -3,12 +3,16 @@
 // Layout contract (hvqm4_tpu_torch/convert.py): every tensor is contiguous
 // with a leading stream axis N; per-block fields are (N, bh, bw), pixel
 // planes (N, 4*bh, 4*bw), descriptors (N, 4, bh, bw) int32 (the u32 wire
-// words), vectors (N, 2, gh, gw) int16. One thread computes one pixel; the
-// grid is (pixel tiles, N).
+// words), vectors (N, 2, gh, gw) int16.
 //
-// Shifts of signed ints (`acc >> 4`, `sx >> 1`) are arithmetic under nvcc,
+// The decode kernels (intra.cu, inter.cu) run one thread per 4x4 block; the
+// csc kernel one thread per pixel. A plane row is 4*bw bytes, a multiple of
+// 4, and the wrappers pass 16-byte-aligned bases, so a block's pixel row is
+// one aligned u32 and its i32 row one aligned int4.
+//
+// Shifts of signed ints (`acc >> 4`, `mv >> 1`) are arithmetic under nvcc,
 // as in the JAX and PyTorch references; `& 1` takes the half-pel phase of
-// a negative coordinate. Division never appears on signed values.
+// a negative vector. Division never appears on signed values.
 #pragma once
 
 #include <cstdint>
@@ -20,11 +24,18 @@ constexpr int kThreads = 256;
 constexpr int kMaxBases = 4;
 constexpr int kMaxNest = 4096;  // the nest is 38x70 or 70x38 = 2,660 B
 
-__device__ __forceinline__ int clampi(int v, int lo, int hi) {
-  return min(max(v, lo), hi);
+// A thread block of the decode kernels: one warp per block row, 32
+// consecutive 4x4 blocks a warp, kTileY block rows of one stream.
+constexpr int kTileX = 32;
+constexpr int kTileY = kThreads / kTileX;
+
+__host__ __device__ constexpr int clampi(int v, int lo, int hi) {
+  return v < lo ? lo : (v > hi ? hi : v);
 }
 
-__device__ __forceinline__ int clip255(int v) { return clampi(v, 0, 255); }
+__host__ __device__ constexpr int clip255(int v) {
+  return clampi(v, 0, 255);
+}
 
 // Intra modes 1..4 carry `mode` bases, every inter block `mode` residual
 // bases, all other blocks none (FORMAT.md 5.3).
@@ -33,8 +44,15 @@ __device__ __forceinline__ int basis_count(int cls, int mode) {
 }
 
 // The smoothing weight table W = [4, 1, 0, 0] (FORMAT.md 6.3).
-__device__ __forceinline__ int wsel(int idx) {
+__host__ __device__ constexpr int wsel(int idx) {
   return idx == 0 ? 4 : (idx == 1 ? 1 : 0);
+}
+
+// The block grid of the decode kernels: (block-column tiles, block-row
+// tiles, streams); the wrappers keep N at most 65,535.
+inline dim3 block_grid(int n, int bh, int bw) {
+  return dim3((unsigned)((bw + kTileX - 1) / kTileX),
+              (unsigned)((bh + kTileY - 1) / kTileY), (unsigned)n);
 }
 
 // One thread per pixel of a plane along x, one stream per grid row along y

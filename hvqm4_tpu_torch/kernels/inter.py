@@ -1,8 +1,11 @@
 """Inter combine: the CUDA kernel `csrc/inter.cu` and its plain version.
 
 Replaces `hvqm4_tpu/kernels/inter.py::_kernel`. The kernel reads its own
-vectors (per-block or per-MB grid) and clamped reference corners, so the
-JAX package's corner-gather prologue and lane-major layout disappear.
+vectors and reference windows, so the JAX package's corner-gather prologue
+and lane-major layout disappear. It runs one thread per 4x4 block and
+reads one vector per block, so the vector grid may be per block or coarser
+(per macroblock), never finer: the JAX reference repeats one vector per
+block too (`_mv_blocks`). The wrapper refuses a finer grid on every device.
 
     inter_combine(plan, intra, acc, ref0, ref1) → (…, H, W) u8
 """
@@ -20,12 +23,16 @@ INTER_COMBINE = Kernel("hvqm4_inter_combine", "ppppppppiiiiiiip",
 
 
 def _grid_shift(plane: int, grid: int) -> int:
-    """log2 of the plane-pixel to vector-grid ratio (a power of two)."""
+    """log2 of the block to vector-grid ratio: the plane-pixel to grid
+    ratio must be a power of two of at least 4 (a 4x4 block)."""
     ratio = plane // grid if grid else 0
     if grid <= 0 or plane % grid or ratio & (ratio - 1):
         raise ValueError(f"vector grid {grid} does not divide plane extent "
                          f"{plane} by a power of two")
-    return (ratio - 1).bit_length()
+    if ratio < 4:
+        raise ValueError(f"vector grid {grid} is finer than the 4x4 blocks "
+                         f"of plane extent {plane}")
+    return (ratio - 1).bit_length() - 2
 
 
 def inter_combine_plain(plan, intra, acc, ref0, ref1):
@@ -51,9 +58,13 @@ def inter_combine(plan, intra, acc, ref0, ref1):
     """The P/B plane of one or N streams from intra synthesis's outputs and
     the reference planes.
 
-    A CPU `intra` takes `inter_combine_plain`; a CUDA `intra` launches the
-    kernel, after checking every input's device, dtype, shape and
-    contiguity, or raises."""
+    The vector grid is checked on every device (`_grid_shift`). A CPU
+    `intra` then takes `inter_combine_plain`; a CUDA `intra` launches the
+    kernel, after checking every input's device, dtype, shape, contiguity
+    and alignment, or raises."""
+    bh, bw = plan["meta"].shape[-2:]
+    gh, gw = plan["mv"].shape[-2:]
+    gsh_y, gsh_x = _grid_shift(bh * 4, gh), _grid_shift(bw * 4, gw)
     dev = intra.device
     if dev.type == "cpu":
         return inter_combine_plain(plan, intra, acc, ref0, ref1)
@@ -64,21 +75,19 @@ def inter_combine(plan, intra, acc, ref0, ref1):
     if single:
         fields = [t.unsqueeze(0) for t in fields]
     meta, mv, mv2, intra, acc, ref0, ref1 = fields
-    n, bh, bw = meta.shape
+    n = meta.shape[0]
     H, W = bh * 4, bw * 4
-    gh, gw = mv.shape[-2:]
-    sh_y, sh_x = _grid_shift(H, gh), _grid_shift(W, gw)
     require(meta, "meta", torch.uint8, (n, bh, bw), dev)
     require(mv, "mv", torch.int16, (n, 2, gh, gw), dev)
     require(mv2, "mv2", torch.int16, (n, 2, gh, gw), dev)
-    require(intra, "intra", torch.uint8, (n, H, W), dev)
-    require(acc, "acc", torch.int32, (n, H, W), dev)
-    require(ref0, "ref0", torch.uint8, (n, H, W), dev)
-    require(ref1, "ref1", torch.uint8, (n, H, W), dev)
+    require(intra, "intra", torch.uint8, (n, H, W), dev, align=4)
+    require(acc, "acc", torch.int32, (n, H, W), dev, align=16)
+    require(ref0, "ref0", torch.uint8, (n, H, W), dev, align=4)
+    require(ref1, "ref1", torch.uint8, (n, H, W), dev, align=4)
 
     out = torch.empty((n, H, W), dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         INTER_COMBINE(*(t.data_ptr() for t in
                         (meta, mv, mv2, intra, acc, ref0, ref1, out)),
-                      n, bh, bw, gh, gw, sh_y, sh_x, stream_ptr(dev))
+                      n, bh, bw, gh, gw, gsh_y, gsh_x, stream_ptr(dev))
     return out[0] if single else out

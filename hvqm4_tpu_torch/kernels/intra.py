@@ -3,6 +3,9 @@
 Replaces `hvqm4_tpu/kernels/intra.py` (`_kernel`, `_kernel_noacc`). Input
 and output stay in plane layout with a leading stream axis: no lane-major
 relayout, no tile padding, no gather prologue (the kernel owns its gathers).
+The kernel runs one thread per 4x4 block and reads and writes a block row
+as one word (u32 pixels, int4 accumulators), so pixel planes start on 4
+bytes and the accumulator on 16.
 
     intra_synth(plan, nest, want_acc) → (intra (…,H,W) u8 clipped,
                                          acc (…,H,W) i32 or None)
@@ -33,8 +36,8 @@ def intra_synth(plan, nest, want_acc: bool = True):
     """Intra pixels (and accumulator) for a plane of one or N streams.
 
     A CPU `nest` takes `intra_synth_plain`; a CUDA `nest` launches the
-    kernel, after checking every input's device, dtype, shape and
-    contiguity, or raises."""
+    kernel, after checking every input's device, dtype, shape, contiguity
+    and alignment, or raises."""
     dev = nest.device
     if dev.type == "cpu":
         return intra_synth_plain(plan, nest, want_acc)
@@ -47,13 +50,17 @@ def intra_synth(plan, nest, want_acc: bool = True):
     meta, dc, desc, raw, nest = fields
     n, bh, bw = meta.shape
     nh, nw = nest.shape[-2:]
-    if nh * nw > MAX_NEST:
-        raise ValueError(f"intra_synth: nest {nh}x{nw} exceeds {MAX_NEST} B")
+    # the kernel stages the nest in 4-byte words and wraps its rows and
+    # columns with one subtract after a step of at most 2
+    if nh * nw > MAX_NEST or nh * nw % 4 or min(nh, nw) < 2:
+        raise ValueError(f"intra_synth: nest {nh}x{nw} must have sides of "
+                         f"at least 2 and a multiple of 4 bytes up to "
+                         f"{MAX_NEST}")
     require(meta, "meta", torch.uint8, (n, bh, bw), dev)
     require(dc, "dc", torch.uint8, (n, bh, bw), dev)
     require(desc, "desc", torch.int32, (n, 4, bh, bw), dev)
-    require(raw, "raw", torch.uint8, (n, bh * 4, bw * 4), dev)
-    require(nest, "nest", torch.uint8, (n, nh, nw), dev)
+    require(raw, "raw", torch.uint8, (n, bh * 4, bw * 4), dev, align=4)
+    require(nest, "nest", torch.uint8, (n, nh, nw), dev, align=4)
 
     out = torch.empty((n, bh * 4, bw * 4), dtype=torch.uint8, device=dev)
     ptrs = [t.data_ptr() for t in (meta, dc, desc, raw, nest, out)]

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from ..host import MAX_BASES
+from ..config import MAX_BASES
 
 
 def _sra(x, n: int):

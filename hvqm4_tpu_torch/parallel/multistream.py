@@ -23,8 +23,10 @@ from typing import Iterator
 
 import torch
 
+from ..config import MEDIA_VIDEO, SeqConfig
+from ..container import Demuxer
 from ..convert import stack_plans
-from ..host import MEDIA_VIDEO, Demuxer, SeqConfig, make_planner
+from ..native import NativePlanner
 from ..ops import device_core
 
 
@@ -72,7 +74,7 @@ def plan_steps(cfg: SeqConfig, clips: list[bytes],
     for d in demuxers:
         if d.info.cfg != cfg:
             raise ValueError("clip parameters do not match the step config")
-    planners = [(planner_factory or make_planner)(cfg) for _ in clips]
+    planners = [(planner_factory or NativePlanner)(cfg) for _ in clips]
     records = [(r for r in d.records() if r.media_type == MEDIA_VIDEO)
                for d in demuxers]
     while True:

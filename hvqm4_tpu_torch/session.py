@@ -20,10 +20,13 @@ from typing import Iterator
 
 import torch
 
+from .config import MEDIA_VIDEO, SeqConfig
+from .container import Demuxer, Record
 from .convert import frame_plan_to_torch
-from .host import (MEDIA_VIDEO, Demuxer, FramePlan, Record, SeqConfig,
-                   StageTimer, make_planner)
+from .native import NativePlanner
 from .ops import device_core
+from .plans import FramePlan
+from .utils.profiling import StageTimer
 
 
 @dataclasses.dataclass
@@ -43,7 +46,7 @@ class DecoderSession:
                  profile: bool = False):
         self.cfg = cfg
         self.device = torch.device(device)
-        self.planner = planner if planner is not None else make_planner(cfg)
+        self.planner = planner if planner is not None else NativePlanner(cfg)
         self.timer = StageTimer(enabled=profile)
         self.nest = torch.zeros(cfg.nest_shape, dtype=torch.uint8,
                                 device=self.device)

@@ -17,10 +17,10 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import random_plan
+from chip_smoke import border_vectors, random_plan
 from hvqm4_tpu_torch import serve
 from hvqm4_tpu_torch.convert import plan_to_torch
-from hvqm4_tpu_torch.host import SeqConfig
+from hvqm4_tpu_torch.config import SeqConfig
 from hvqm4_tpu_torch.kernels import _build
 from hvqm4_tpu_torch.kernels.csc import (YUV_TO_RGB, yuv_to_rgb,
                                          yuv_to_rgb_plain)
@@ -46,11 +46,16 @@ def _plan(rng, bh, bw, n, mv_grid):
     return random_plan(rng, bh, bw, n, grid)
 
 
-# (n or None for no stream axis, bh, bw, nest, vector grid): ragged grids
-# that are no multiple of the 256-thread tile, both nests, per-MB vectors,
-# and the 640x480 grids at N=8
+# (n or None for no stream axis, bh, bw, nest, vector grid): grids whose
+# width is no multiple of a warp's 32 blocks and whose height is no
+# multiple of a thread block's 8 rows (7 and 5, 45 and 13, 46 and 14),
+# both nests, per-block and per-MB vectors, and the 640x480 grids at
+# N = 1, 8 and 33. Random descriptors reach nest offsets up to 127, beyond
+# both nest sides, so the modular addressing wraps.
 CASES = [(None, 5, 7, (38, 70), "block"), (3, 12, 16, (70, 38), "mb"),
-         (8, 120, 160, (38, 70), "mb"), (8, 60, 80, (70, 38), "block")]
+         (8, 120, 160, (38, 70), "mb"), (8, 60, 80, (70, 38), "block"),
+         (1, 13, 45, (70, 38), "block"), (33, 14, 46, (38, 70), "mb"),
+         (1, 120, 160, (70, 38), "block"), (33, 60, 80, (38, 70), "block")]
 
 
 @pytest.mark.cuda
@@ -83,6 +88,25 @@ def test_cuda_kernels_match_plain(cuda, n, bh, bw, nest_shape, mv_grid):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 8])
+def test_cuda_inter_windows_at_every_border(cuda, n):
+    """Every block inter, with vectors of -9..9 in every half-pel phase, so
+    that the windows of the blocks along each border straddle it, and
+    backward vectors of +-2,000: the clamped path against the plain one."""
+    rng = np.random.default_rng(40 + n)
+    tp = plan_to_torch(border_vectors(rng, random_plan(rng, 12, 20, n,
+                                                       (12, 20))), cuda)
+    nest = torch.from_numpy(rng.integers(0, 256, (n, 38, 70),
+                                         dtype=np.uint8)).to(cuda)
+    ref0, ref1 = (torch.from_numpy(rng.integers(
+        0, 256, (n, 48, 80), dtype=np.uint8)).to(cuda) for _ in range(2))
+    px, acc = intra_synth_plain(tp, nest)
+    got = inter_combine(tp, px, acc, ref0, ref1)
+    torch.cuda.synchronize()
+    assert torch.equal(got, inter_combine_plain(tp, px, acc, ref0, ref1))
+
+
+@pytest.mark.cuda
 def test_cuda_wrappers_reject_bad_inputs(cuda):
     rng = np.random.default_rng(3)
     tp = plan_to_torch(_plan(rng, 4, 4, 2, "block"), cuda)
@@ -97,6 +121,15 @@ def test_cuda_wrappers_reject_bad_inputs(cuda):
     px, acc = intra_synth(tp, nest)
     with pytest.raises(ValueError, match="ref1"):
         inter_combine(tp, px, acc, px, px.cpu())
+    fine = torch.zeros((2, 2, 16, 16), dtype=torch.int16, device=cuda)
+    with pytest.raises(ValueError, match="finer than the 4x4 blocks"):
+        inter_combine({**tp, "mv": fine, "mv2": fine}, px, acc, px, px)
+    words = torch.empty(acc.numel() + 1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="acc: .* multiple of 16 bytes"):
+        inter_combine(tp, px, words[1:].view(acc.shape), px, px)
+    u8 = torch.empty(px.numel() + 1, dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="ref0: .* multiple of 4 bytes"):
+        inter_combine(tp, px, acc, u8[1:].view(px.shape), px)
 
 
 @pytest.mark.cuda

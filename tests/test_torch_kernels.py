@@ -123,3 +123,29 @@ def test_library_named_by_source_hash():
     assert {k.symbol for k in _build.kernels()} == {
         "hvqm4_intra_synth_acc", "hvqm4_intra_synth_noacc",
         "hvqm4_inter_combine", "hvqm4_yuv_to_rgb"}
+
+
+@pytest.mark.parametrize("grid,match", [
+    ((24, 32), "finer than the 4x4 blocks"),   # one vector per pixel
+    ((12, 16), "finer than the 4x4 blocks"),   # per 2x2 pixels
+    ((5, 8), "does not divide"),
+])
+def test_inter_combine_refuses_grids_finer_than_a_block(grid, match):
+    """The kernel reads one vector per 4x4 block, so the wrapper refuses a
+    finer grid on every device, the CPU included."""
+    rng = np.random.default_rng(13)
+    p = _plan(rng, 6, 8)
+    for k in ("mv", "mv2"):
+        p[k] = rng.integers(-8, 9, (1, 2, *grid)).astype(np.int16)
+    tp = plan_to_torch(p, "cpu")
+    px, acc = intra_synth_plain(tp, torch.zeros((1, 38, 70),
+                                                dtype=torch.uint8))
+    with pytest.raises(ValueError, match=match):
+        inter_combine(tp, px, acc, px, px)
+
+
+def test_require_checks_alignment():
+    t = torch.zeros(64, dtype=torch.uint8)
+    _build.require(t[4:20], "x", torch.uint8, (16,), t.device, align=4)
+    with pytest.raises(ValueError, match="multiple of 4 bytes"):
+        _build.require(t[2:18], "x", torch.uint8, (16,), t.device, align=4)

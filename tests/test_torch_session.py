@@ -12,12 +12,13 @@ import pytest
 import torch
 
 from __graft_entry__ import _example_step_args
-from hvqm4_tpu.config import SeqConfig
-from hvqm4_tpu.container import Demuxer
+from hvqm4_tpu.config import SeqConfig as JaxSeqConfig
 from hvqm4_tpu.parallel import multistream as jms
 from hvqm4_tpu.session import DecoderSession as JaxSession
 from hvqm4_tpu.utils.hashing import wsum32
 from hvqm4_tpu_torch import cli
+from hvqm4_tpu_torch.config import SeqConfig
+from hvqm4_tpu_torch.container import Demuxer
 from hvqm4_tpu_torch.convert import plan_to_torch, stack_plans, state_to_torch
 from hvqm4_tpu_torch.parallel import multistream as tms
 from hvqm4_tpu_torch.session import (DecoderSession, HVQM4BuffSize,
@@ -52,7 +53,7 @@ def test_session_matches_oracle_and_jax(oracle_bin, tmp_path, w, h, samp,
     clip = make_clip(cfg, gops, seed=seed, mv_extreme=mv_extreme)
     got = _decode(DecoderSession(cfg, "cpu"), clip)
     assert b"".join(got) == run_oracle(oracle_bin, clip, tmp_path)
-    assert got == _decode(JaxSession(cfg), clip)
+    assert got == _decode(JaxSession(JaxSeqConfig(w, h, samp, samp)), clip)
 
 
 def test_session_seek_block():
@@ -121,7 +122,7 @@ def _assert_step_equal(want, got):
 
 
 def test_multi_frame_step_matches_jax_on_example_args():
-    args = list(_example_step_args(SeqConfig(64, 48), n=2))
+    args = list(_example_step_args(JaxSeqConfig(64, 48), n=2))
     args[3] = np.array([True, False])   # is_i: one stream takes a new nest
     args[4] = np.array([True, False])   # is_ref: one stream rotates
     _assert_step_equal(_jax_step(*args), _torch_step(*args))
@@ -205,7 +206,7 @@ def test_cli_decode_options(tmp_path, clip_path, oracle_bin):
     assert out.read_bytes() == oracle[3 * fb:4 * fb]
     assert cli.main(["decode", str(clip_path), str(out), "--device", "cpu",
                      "--display-order"]) == 0
-    golden = JaxSession(SeqConfig(64, 48), backend="numpy")
+    golden = JaxSession(JaxSeqConfig(64, 48), backend="numpy")
     assert out.read_bytes() == b"".join(
         f.yuv_bytes() for f in golden.decode_clip_display_order(
             clip_path.read_bytes()))
@@ -231,17 +232,23 @@ def test_cli_without_cuda_fails_with_one_line(capsys, clip_path):
 
 _NO_JAX = r"""
 import sys
-sys.modules["jax"] = None   # any `import jax` now raises ImportError
+sys.modules["jax"] = None        # any `import jax` now raises ImportError,
+sys.modules["hvqm4_tpu"] = None  # and so does any import of the JAX package
+import importlib
+import pkgutil
 import threading
-from hvqm4_tpu.config import SeqConfig
-from hvqm4_tpu_torch import cli, serve
-from hvqm4_tpu_torch.models import vit
-from hvqm4_tpu_torch.ops import csc
+import chip_smoke
+import hvqm4_tpu_torch
+mods = [m.name for m in pkgutil.walk_packages(hvqm4_tpu_torch.__path__,
+                                               "hvqm4_tpu_torch.")]
+for name in mods:
+    importlib.import_module(name)
+from hvqm4_tpu_torch import serve
+from hvqm4_tpu_torch.container import Demuxer
 from hvqm4_tpu_torch.session import DecoderSession
 from hvqm4_tpu_torch.parallel.multistream import decode_lockstep
-from tools.encoder import make_clip
-cfg = SeqConfig(32, 16)
-clip = make_clip(cfg, ["IPB"], seed=77)
+clip = open(sys.argv[1], "rb").read()
+cfg = Demuxer(clip).info.cfg
 frames = [f.yuv_bytes() for f in DecoderSession(cfg, "cpu").decode_clip(clip)]
 steps = list(decode_lockstep(cfg, [clip], "cpu"))
 assert len(frames) == len(steps) == 3
@@ -251,15 +258,23 @@ rgb = serve.decode_remote(*srv.server_address, clip, mode=serve.MODE_RGB)
 srv.shutdown()
 srv.server_close()
 assert [len(c) for c in rgb] == [32 * 16 * 3] * 3
-loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
-assert loaded == ["jax"], loaded   # only the blocker itself
-print("ok", len(frames), len(rgb))
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "hvqm4_tpu"))
+assert loaded == ["hvqm4_tpu", "jax"], loaded   # only the blockers
+print("ok", len(mods), len(frames), len(rgb))
 """
 
 
-def test_port_never_imports_jax():
+def test_port_never_imports_jax(tmp_path):
+    """Every module of the port and `chip_smoke` import, and a clip
+    decodes through the session, the lock-step step and the server, with
+    both JAX and the JAX package blocked."""
+    clip = tmp_path / "c.h4m"
+    clip.write_bytes(make_clip(SeqConfig(32, 16), ["IPB"], seed=77))
     env = dict(os.environ, PYTHONPATH=str(REPO))
-    res = subprocess.run([sys.executable, "-c", _NO_JAX], env=env, cwd=REPO,
-                         capture_output=True, text=True, timeout=300)
+    res = subprocess.run([sys.executable, "-c", _NO_JAX, str(clip)], env=env,
+                         cwd=REPO, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-2000:]
-    assert res.stdout.strip() == "ok 3 3"
+    ok, n_mods, n_frames, n_rgb = res.stdout.split()
+    assert (ok, n_frames, n_rgb) == ("ok", "3", "3")
+    assert int(n_mods) >= 20
