@@ -15,8 +15,10 @@ Phases, in order; any failure exits non-zero before the result line:
    ragged grids (45 and 46 blocks wide, 13 and 14 high), with windows
    straddling every border and vectors of +-2,000, both nest orientations,
    per-block and per-MB vector grids, and `inter_combine` refusing a
-   per-pixel grid; `yuv_to_rgb` on random planes at 480x640, N=8, 4:2:0
-   and 4:4:4, at a ragged 250x90, and in the 2-D form.
+   per-pixel grid; `yuv_to_rgb` on random planes (`CSC_CASES`) at 480x640,
+   N=8, 4:2:0 and 4:4:4, at a ragged 250x90 and a 200x360 (8 mod 16 wide),
+   in the 2-D form, as a view of stacked frames and one byte off an aligned
+   base, printing the kernel variant each case took; both must be taken.
 4. session: testdata/ref640.h4m and retail640.h4m (28 frames each) through
    `DecoderSession` on cuda; every frame's on-device csum must equal
    `oracle --csum`, and retail640's FNV-1a hashes `oracle --hash`.
@@ -34,8 +36,11 @@ Phases, in order; any failure exits non-zero before the result line:
 7. times: kernel and plain times (CUDA events, 3 warm-ups, median of 20;
    the profiler's device time per call), the decode kernels at both
    640x480 grids with N = 1, 8 and 32, each beside its bound: the bytes
-   this data needs (`intra_bytes`, `inter_bytes`) over 3.35 TB/s. Then
-   session and lock-step frame rates, host planning timed separately.
+   this data needs (`intra_bytes`, `inter_bytes`) over 3.35 TB/s;
+   `yuv_to_rgb` at 480x640 4:2:0 with N = 1, 8 and 64 (88.47 MB, past the
+   50 MB L2) and 4:4:4 with N = 8 (the vector variant), and at 480x632
+   (8 mod 16 wide: the general variant) with N = 8 in both. Then session
+   and lock-step frame rates, host planning timed separately.
 
 `launches` in the kernels line is the sum of the counted phases 4-5 and 6;
 its times are the luma grid's (480x640 for `yuv_to_rgb`) at N=8. Before
@@ -173,7 +178,8 @@ def phase_kernels(dev) -> dict:
     import torch
 
     from hvqm4_tpu_torch.convert import plan_to_torch
-    from hvqm4_tpu_torch.kernels.csc import yuv_to_rgb, yuv_to_rgb_plain
+    from hvqm4_tpu_torch.kernels.csc import (_vector_ok, yuv_to_rgb,
+                                             yuv_to_rgb_plain)
     from hvqm4_tpu_torch.kernels.inter import inter_combine, inter_combine_plain
     from hvqm4_tpu_torch.kernels.intra import intra_synth, intra_synth_plain
 
@@ -213,23 +219,68 @@ def phase_kernels(dev) -> dict:
         fail("inter_combine took a per-pixel vector grid")
     except ValueError as e:
         print(f"kernels: inter_combine refuses a per-pixel grid ({e})")
-    # (n or None for the 2-D form, H, W, sampling); 250x90 is no multiple
-    # of the 256-thread tile nor of the JAX kernel's 64-row tile
     err["yuv_to_rgb"] = 0
-    for n, h, w, samp in ((N_STREAMS, 480, 640, 2), (N_STREAMS, 480, 640, 1),
-                          (N_STREAMS, 250, 90, 2), (None, 480, 640, 2)):
-        y, u, v = random_yuv(rng, n, h, w, samp, dev)
-        e = max_err(yuv_to_rgb(y, u, v, samp, samp),
-                    yuv_to_rgb_plain(y, u, v, samp, samp))
+    variants = set()
+    for n, h, w, samp, form in CSC_CASES:
+        y, u, v = csc_planes(rng, n, h, w, samp, form, dev)
+        got = yuv_to_rgb(y, u, v, samp, samp)
+        e = max_err(got, yuv_to_rgb_plain(y, u, v, samp, samp))
         torch.cuda.synchronize()
         err["yuv_to_rgb"] = max(err["yuv_to_rgb"], e)
+        variant = "vector" if _vector_ok(w, samp, y.data_ptr(), u.data_ptr(),
+                                         v.data_ptr(), got.data_ptr()) \
+            else "general"
+        variants.add(variant)
         print(f"kernels vs plain: yuv_to_rgb {h}x{w} "
-              f"{'4:2:0' if samp == 2 else '4:4:4'} "
-              f"{f'N={n}' if n else '2-D'}: max_abs_err {e}")
+              f"{'4:2:0' if samp == 2 else '4:4:4'} N={n} {form}, {variant} "
+              f"variant: max_abs_err {e}")
+    if variants != {"vector", "general"}:
+        fail(f"yuv_to_rgb: the cases took only {variants}")
     for name, e in err.items():
         if e != 0:
             fail(f"{name} differs from its plain version (max_abs_err {e})")
     return err
+
+
+# Phase 3's `yuv_to_rgb` cases: (N, H, W, sampling, form), `form` as in
+# `csc_planes`. 250x90 is no multiple of the JAX kernel's 64-row tile and,
+# like 360, no multiple of the vector variant's 16-pixel group; frames of
+# a stack start aligned at 640x480; the offset form never does.
+CSC_CASES = [(N_STREAMS, 480, 640, 2, "stack"),
+             (N_STREAMS, 480, 640, 1, "stack"),
+             (N_STREAMS, 250, 90, 2, "stack"),
+             (N_STREAMS, 200, 360, 2, "stack"),
+             (1, 480, 640, 2, "2d"), (3, 480, 640, 2, "view"),
+             (1, 480, 640, 2, "offset")]
+
+
+# Phase 7's `yuv_to_rgb` points: (N, W, sampling) at H = 480. 640 wide
+# takes the vector variant; 632, 8 mod 16, the general one.
+CSC_TIME_POINTS = [(1, 640, 2), (N_STREAMS, 640, 2), (64, 640, 2),
+                   (N_STREAMS, 640, 1), (N_STREAMS, 632, 2),
+                   (N_STREAMS, 632, 1)]
+
+
+def csc_planes(rng, n: int, h: int, w: int, samp: int, form: str,
+               dev) -> list:
+    """Random u8 planes [Y, U, V] on `dev`, chroma at its native size:
+    (N, H, W) for "stack"; (H, W) planes of their own for "2d"; the last
+    frame of a stack of N for "view"; (H, W) planes starting one byte past
+    an aligned base for "offset"."""
+    import torch
+
+    planes = random_yuv(rng, n if form in ("stack", "view") else None, h, w,
+                        samp, dev)
+    if form == "view":
+        return [p[-1] for p in planes]
+    if form == "offset":
+        out = []
+        for p in planes:
+            flat = torch.empty(p.numel() + 1, dtype=torch.uint8, device=dev)
+            flat[1:] = p.reshape(-1)
+            out.append(flat[1:].view(p.shape))
+        return out
+    return planes
 
 
 def random_yuv(rng, n, h: int, w: int, samp: int, dev) -> list:
@@ -333,6 +384,7 @@ def run_lockstep(cfg, steps, dev) -> None:
 
 
 HBM_BYTES_PER_S = 3.35e12  # one H100 SXM, NVIDIA's data sheet
+L2_BYTES = 50e6
 TIME_NS = (1, N_STREAMS, 32)  # N=32 luma moves more than the 50 MB L2
 
 
@@ -439,7 +491,7 @@ def inter_bytes(plan, ref0, ref1) -> tuple:
 def phase_times(dev, cfg, clips: dict, tag: str) -> dict:
     """Phase 7 timings: the decode kernels vs plain at the 640x480 grids
     with N = 1, 8 and 32, each beside its bound; `yuv_to_rgb` vs plain at
-    480x640 with N=1 and N=8; then the session and lock-step frame rates.
+    `CSC_TIME_POINTS`; then the session and lock-step frame rates.
     Returns, per kernel, the luma (or 480x640) N=8 figures."""
     import torch
 
@@ -496,12 +548,19 @@ def phase_times(dev, cfg, clips: dict, tag: str) -> dict:
             del plan, nest, ref0, ref1, px, acc
             torch.cuda.empty_cache()
 
-    for n in (1, N_STREAMS):
-        y, u, v = random_yuv(rng, n, 480, 640, 2, dev)
+    for n, w, samp in CSC_TIME_POINTS:
+        y, u, v = random_yuv(rng, n, 480, w, samp, dev)
         nbytes = 4 * y.numel() + u.numel() + v.numel()  # Y, U, V in; RGB out
-        timed("yuv_to_rgb", lambda: yuv_to_rgb(y, u, v, 2, 2),
-              lambda: yuv_to_rgb_plain(y, u, v, 2, 2), (nbytes, nbytes),
-              f"480x640 4:2:0 N={n}", n == N_STREAMS)
+        l2 = (" (in the 50 MB L2 across calls: the bound is no floor)"
+              if nbytes < L2_BYTES else " (past the L2)")
+        # fresh planes start aligned, so the width picks the variant
+        variant = "vector" if w % 16 == 0 else "general"
+        timed("yuv_to_rgb", lambda: yuv_to_rgb(y, u, v, samp, samp),
+              lambda: yuv_to_rgb_plain(y, u, v, samp, samp), (nbytes, nbytes),
+              f"480x{w} {'4:2:0' if samp == 2 else '4:4:4'} N={n}, {variant} "
+              f"variant{l2}", (n, w, samp) == (N_STREAMS, 640, 2))
+        del y, u, v  # N=64's are 29 MB; each point's RGB dies in timed
+        torch.cuda.empty_cache()
 
     for name, data in clips.items():
         sess = DecoderSession(Demuxer(data).info.cfg, dev, profile=True)

@@ -5,10 +5,12 @@
 // planes (N, 4*bh, 4*bw), descriptors (N, 4, bh, bw) int32 (the u32 wire
 // words), vectors (N, 2, gh, gw) int16.
 //
-// The decode kernels (intra.cu, inter.cu) run one thread per 4x4 block; the
-// csc kernel one thread per pixel. A plane row is 4*bw bytes, a multiple of
-// 4, and the wrappers pass 16-byte-aligned bases, so a block's pixel row is
-// one aligned u32 and its i32 row one aligned int4.
+// The decode kernels (intra.cu, inter.cu) run one thread per 4x4 block. A
+// plane row is 4*bw bytes, a multiple of 4, and the wrappers pass
+// 16-byte-aligned bases, so a block's pixel row is one aligned u32 and its
+// i32 row one aligned int4. The csc kernel (csc.cu) runs one thread per 16
+// pixels of a row (two rows in 4:2:0) where the width and the bases allow
+// 16-byte accesses, else one per pixel (two rows in 4:2:0).
 //
 // Shifts of signed ints (`acc >> 4`, `mv >> 1`) are arithmetic under nvcc,
 // as in the JAX and PyTorch references; `& 1` takes the half-pel phase of
@@ -53,13 +55,6 @@ __host__ __device__ constexpr int wsel(int idx) {
 inline dim3 block_grid(int n, int bh, int bw) {
   return dim3((unsigned)((bw + kTileX - 1) / kTileX),
               (unsigned)((bh + kTileY - 1) / kTileY), (unsigned)n);
-}
-
-// One thread per pixel of a plane along x, one stream per grid row along y
-// (at most 65,535 streams). The wrappers keep every tensor under 2^31
-// elements, so in-plane indices fit int; stream offsets use size_t.
-inline dim3 plane_grid(int n, int npix) {
-  return dim3((unsigned)((npix + kThreads - 1) / kThreads), (unsigned)n);
 }
 
 }  // namespace hvqm4

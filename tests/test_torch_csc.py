@@ -11,7 +11,8 @@ import torch
 from hvqm4_tpu.kernels.csc import yuv_to_rgb_pallas
 from hvqm4_tpu.ops import csc as jcsc
 from hvqm4_tpu_torch.kernels import _build
-from hvqm4_tpu_torch.kernels.csc import yuv_to_rgb, yuv_to_rgb_plain
+from hvqm4_tpu_torch.kernels.csc import (_vector_ok, yuv_to_rgb,
+                                         yuv_to_rgb_plain)
 from hvqm4_tpu_torch.ops import csc
 
 torch.set_num_threads(1)
@@ -25,10 +26,11 @@ def _planes(rng, lead, h, w, samp):
 
 @pytest.mark.parametrize("n", [None, 3])
 @pytest.mark.parametrize("samp", [2, 1])
-@pytest.mark.parametrize("h,w", [(36, 48), (72, 96)])
+@pytest.mark.parametrize("h,w", [(36, 48), (72, 96), (48, 72)])
 def test_yuv_to_rgb_matches_jax(n, samp, h, w):
     """Exact against JAX `yuv_to_rgb`, `frame_to_rgb` and the Pallas kernel;
-    72 rows run the Pallas kernel over two 64-row tiles."""
+    72 rows run the Pallas kernel over two 64-row tiles; 72 wide is 8 mod
+    16, a width the CUDA kernel's vector variant does not take."""
     rng = np.random.default_rng(h * 10 + samp + (n or 0))
     lead = (n,) if n else ()
     y, u, v = _planes(rng, lead, h, w, samp)
@@ -98,6 +100,30 @@ def test_cpu_planes_take_the_plain_version():
     assert torch.equal(yuv_to_rgb(y, u, v, 2, 2),
                        yuv_to_rgb_plain(y, u, v, 2, 2))
     assert [k.launches for k in _build.kernels()] == before
+
+
+# (W, h_samp, (Y, U, V, RGB) base offsets in bytes from a 4,096-byte
+# aligned address, vector variant allowed)
+@pytest.mark.parametrize("w,samp,offs,want", [
+    (640, 2, (0, 0, 0, 0), True),
+    (48, 2, (0, 0, 0, 0), True),
+    (640, 1, (0, 0, 0, 0), True),
+    (16, 1, (16, 32, 48, 64), True),
+    (640, 2, (0, 8, 24, 0), True),      # 4:2:0 chroma needs only 8 bytes
+    (640, 2, (480 * 640, 240 * 320, 2 * 240 * 320, 0), True),  # frames[1]
+    (72, 2, (0, 0, 0, 0), False),       # 8 mod 16
+    (360, 2, (0, 0, 0, 0), False),
+    (90, 2, (0, 0, 0, 0), False),
+    (26, 1, (0, 0, 0, 0), False),
+    (640, 2, (1, 0, 0, 0), False),      # an offset view of luma
+    (640, 2, (0, 4, 0, 0), False),
+    (640, 1, (0, 8, 0, 0), False),      # 4:4:4 chroma needs 16 bytes
+    (640, 1, (0, 0, 8, 0), False),
+    (640, 2, (0, 0, 0, 8), False),
+    (90, 2, (250 * 90, 125 * 45, 125 * 45, 0), False),  # ragged frames[1]
+])
+def test_vector_variant_choice(w, samp, offs, want):
+    assert _vector_ok(w, samp, *(4096 + o for o in offs)) is want
 
 
 def test_bad_sampling_and_shapes_raise():

@@ -17,12 +17,12 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import border_vectors, random_plan
+from chip_smoke import border_vectors, csc_planes, random_plan
 from hvqm4_tpu_torch import serve
 from hvqm4_tpu_torch.convert import plan_to_torch
 from hvqm4_tpu_torch.config import SeqConfig
 from hvqm4_tpu_torch.kernels import _build
-from hvqm4_tpu_torch.kernels.csc import (YUV_TO_RGB, yuv_to_rgb,
+from hvqm4_tpu_torch.kernels.csc import (YUV_TO_RGB, _vector_ok, yuv_to_rgb,
                                          yuv_to_rgb_plain)
 from hvqm4_tpu_torch.kernels.inter import inter_combine, inter_combine_plain
 from hvqm4_tpu_torch.kernels.intra import intra_synth, intra_synth_plain
@@ -151,27 +151,44 @@ def test_cuda_session_matches_oracle(cuda, tmp_path):
         assert got == out.read_bytes(), (w, h, gops, seed)
 
 
-# (n or None for no stream axis, H, W, sampling): ragged pixel counts that
-# are no multiple of the 256-thread tile, both samplings, 640x480 at N=8
-CSC_CASES = [(None, 36, 48, 2), (3, 74, 102, 2), (2, 30, 26, 1),
-             (8, 480, 640, 2), (8, 480, 640, 1)]
+# (n, H, W, sampling, form, variant): `form` as in `chip_smoke.csc_planes`
+# ("view", the last frame of a stack, starts aligned at 640x480 and not at
+# the ragged sizes); `variant` is the kernel variant the case must take.
+# 640x480 at N = 1, 8 and 64, both samplings; widths that are 8 mod 16 (72,
+# 360, 632) and ragged sizes.
+CSC_CASES = [(None, 36, 48, 2, "2d", "vector"),
+             (3, 74, 102, 2, "stack", "general"),
+             (2, 30, 26, 1, "stack", "general"),
+             (1, 480, 640, 2, "stack", "vector"),
+             (8, 480, 640, 2, "stack", "vector"),
+             (64, 480, 640, 2, "stack", "vector"),
+             (1, 480, 640, 1, "stack", "vector"),
+             (8, 480, 640, 1, "stack", "vector"),
+             (64, 480, 640, 1, "stack", "vector"),
+             (3, 48, 72, 2, "stack", "general"),
+             (2, 200, 360, 2, "stack", "general"),
+             (8, 480, 632, 2, "stack", "general"),
+             (8, 480, 632, 1, "stack", "general"),
+             (3, 480, 640, 2, "view", "vector"),
+             (3, 250, 90, 2, "view", "general"),
+             (3, 30, 26, 1, "view", "general"),
+             (1, 48, 64, 2, "offset", "general"),
+             (1, 48, 64, 1, "offset", "general")]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,h,w,samp", CSC_CASES)
-def test_cuda_yuv_to_rgb_matches_plain(cuda, n, h, w, samp):
+@pytest.mark.parametrize("n,h,w,samp,form,variant", CSC_CASES)
+def test_cuda_yuv_to_rgb_matches_plain(cuda, n, h, w, samp, form, variant):
     rng = np.random.default_rng(h + w + samp)
-    lead = (n,) if n else ()
-    y = torch.from_numpy(rng.integers(0, 256, (*lead, h, w),
-                                      dtype=np.uint8)).to(cuda)
-    u, v = (torch.from_numpy(rng.integers(
-        0, 256, (*lead, h // samp, w // samp), dtype=np.uint8)).to(cuda)
-        for _ in range(2))
+    y, u, v = csc_planes(rng, n, h, w, samp, form, cuda)
     before = YUV_TO_RGB.launches
     got = yuv_to_rgb(y, u, v, samp, samp)
     torch.cuda.synchronize()
     assert YUV_TO_RGB.launches == before + 1
-    assert got.shape == (*lead, h, w, 3) and got.dtype == torch.uint8
+    assert got.shape == (*y.shape, 3) and got.dtype == torch.uint8
+    took = _vector_ok(w, samp, y.data_ptr(), u.data_ptr(), v.data_ptr(),
+                      got.data_ptr())
+    assert ("vector" if took else "general") == variant
     assert torch.equal(got, yuv_to_rgb_plain(y, u, v, samp, samp))
 
 
@@ -189,6 +206,15 @@ def test_cuda_yuv_to_rgb_rejects_bad_inputs(cuda):
         yuv_to_rgb(y, c, c, 2, 1)
     with pytest.raises(ValueError, match="chroma"):
         yuv_to_rgb(y, c, c, 1, 1)
+    # the C entry refuses the vector variant on a base it cannot take
+    flat = torch.zeros(16 * 16 + 1, dtype=torch.uint8, device=cuda)
+    out = torch.empty((1, 16, 16, 3), dtype=torch.uint8, device=cuda)
+    before = YUV_TO_RGB.launches
+    with pytest.raises(RuntimeError, match="hvqm4_yuv_to_rgb: CUDA error"):
+        YUV_TO_RGB(flat[1:].data_ptr(), c.data_ptr(), c.data_ptr(),
+                   out.data_ptr(), 1, 16, 16, 1, 1, 1,
+                   _build.stream_ptr(cuda))
+    assert YUV_TO_RGB.launches == before
 
 
 @pytest.mark.cuda
