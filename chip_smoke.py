@@ -25,14 +25,26 @@ Phases, in order; any failure exits non-zero before the result line:
 5. lock-step: 8 streams (4x each clip) through `multi_frame_step`; every
    frame of every stream must equal the oracle's csum. The decode kernels
    must have launched during phases 4-5.
+5b. arena (the main path): the same 8 streams through the arena
+   `MultiStreamDecoder` on cuda, `run_pipelined` at K = 1 and K = 2
+   (plan_ahead 2), then a packed replay (every step planned and
+   snapshotted, `stage_packed`, `device_step` on a fresh decoder); every
+   frame of every stream must equal the oracle's csum (`batch_csum` on the
+   card). `intra_synth_acc` and `inter_combine` must each launch 3 x the
+   decode steps of the phase (dispatched steps x K), `intra_synth_noacc`
+   never.
 6. serve: the port's `DecodeServer` on cuda, on a thread, answers both
    clips over TCP in YUV (FNV-1a == `oracle --hash`), RGB (== the integer
    formula on the oracle's frames) and EMBED (28 finite 384-vectors; two
    frames a clip against the port's CPU ViT with the same weights), then
    four mixed requests over one `MuxClient` connection (== the single-shot
-   replies), then metrics. Every kernel, `yuv_to_rgb` included, must have
-   launched during this phase. Then request latencies and the ViT's time
-   per frame.
+   replies), then metrics. Then a batching server (`batch_window_s`
+   0.25, `max_batch` 4) answers four concurrent requests: both clips in
+   YUV (== `oracle --hash`) and RGB (== the integer formula), and a
+   truncated clip that must fail alone; fewer batches than batched
+   requests, and `yuv_to_rgb` launched by the batch's RGB replies. Every
+   kernel, `yuv_to_rgb` included, must have launched during this phase.
+   Then request latencies and the ViT's time per frame.
 7. times: kernel and plain times (CUDA events, 3 warm-ups, median of 20;
    the profiler's device time per call), the decode kernels at both
    640x480 grids with N = 1, 8 and 32, each beside its bound: the bytes
@@ -40,10 +52,17 @@ Phases, in order; any failure exits non-zero before the result line:
    `yuv_to_rgb` at 480x640 4:2:0 with N = 1, 8 and 64 (88.47 MB, past the
    50 MB L2) and 4:4:4 with N = 8 (the vector variant), and at 480x632
    (8 mod 16 wide: the general variant) with N = 8 in both. Then session
-   and lock-step frame rates, host planning timed separately.
+   and lock-step frame rates, host planning timed separately, and beside
+   them the arena path's: pipelined fps at K = 1 and 2 with the decoder's
+   stage split per frame (plan, assemble, stage, upload, dispatch, wait),
+   the packed replay's device-phase fps with its plans already on the
+   card, bytes uploaded per frame on both paths, the device's busy share
+   over a pipelined window, and the profiler's launches per step split
+   into the port's kernels, copies and the rest.
 
-`launches` in the kernels line is the sum of the counted phases 4-5 and 6;
-its times are the luma grid's (480x640 for `yuv_to_rgb`) at N=8. Before
+`launches` in the kernels line is the sum of the counted phases 4-5, 5b
+and 6; its times are the luma grid's (480x640 for `yuv_to_rgb`) at N=8.
+Before
 the last lines the script fails if any module of JAX or of `hvqm4_tpu` was
 imported. The line before the last is a JSON object of the kernels; the
 last line is
@@ -338,14 +357,12 @@ def phase_lockstep(cfg, clips: dict, dev, want: dict) -> None:
     """Phase 5: 8 streams through `decode_lockstep` (per-stream
     NativePlanner, stacked per step, `multi_frame_step`); every frame of
     every stream against the oracle."""
-    from hvqm4_tpu_torch.native import NativePlanner
     from hvqm4_tpu_torch.parallel.multistream import decode_lockstep
     from hvqm4_tpu_torch.utils.hashing import batch_csum
 
     got = [[] for _ in range(N_STREAMS)]
     for frames, valid in decode_lockstep(
-            cfg, [clips[n] for n in STREAM_CLIPS], dev,
-            planner_factory=NativePlanner):
+            cfg, [clips[n] for n in STREAM_CLIPS], dev):
         cs = batch_csum(*frames).cpu().tolist()
         for j in range(N_STREAMS):
             if valid[j]:
@@ -357,16 +374,77 @@ def phase_lockstep(cfg, clips: dict, dev, want: dict) -> None:
           f"{sum(map(len, got))} frames, csum == oracle on every frame")
 
 
+def arena_csums(ms, steps) -> list:
+    """Per stream, the csum of every valid frame of `steps`, an iterator
+    of (frames, metas, valid) from `ms`."""
+    from hvqm4_tpu_torch.utils.hashing import batch_csum
+
+    got = [[] for _ in range(ms.n)]
+    for frames, _metas, valid in steps:
+        cs = batch_csum(*frames).cpu().tolist()
+        for j in range(ms.n):
+            if valid[j]:
+                got[j].append(f"{cs[j]:08x}")
+    return got
+
+
+def plan_replay(cfg, streams: list, dev) -> tuple:
+    """Every step of the 8 streams planned ahead by a decoder on `dev`, as
+    `snapshot_step` payloads, with the count of valid frames."""
+    from hvqm4_tpu_torch.parallel.multistream import MultiStreamDecoder
+
+    ms = MultiStreamDecoder(cfg, streams, dev)
+    snaps, valid = [], []
+    while any(ms.active):
+        buf, _metas, v = ms.plan_step()
+        snaps.append(ms.snapshot_step(buf))
+        valid.append(v)
+    return snaps, valid
+
+
+def phase_arena(cfg, clips: dict, dev, want: dict) -> int:
+    """Phase 5b: the arena decoder on the card, pipelined at K = 1 and 2,
+    then a packed replay; every frame of every stream against the oracle.
+    Returns the decode steps run (dispatched steps x K)."""
+    from hvqm4_tpu_torch.parallel.multistream import MultiStreamDecoder
+
+    streams = [clips[n] for n in STREAM_CLIPS]
+    substeps = 0
+    for k in (1, 2):
+        ms = MultiStreamDecoder(cfg, streams, dev, steps_per_dispatch=k,
+                                plan_ahead=2)
+        got = arena_csums(ms, ms.run_pipelined())
+        for j, name in enumerate(STREAM_CLIPS):
+            if got[j] != want[name]:
+                fail(f"arena K={k} stream {j} ({name}) differs from the "
+                     f"oracle")
+        substeps += int(ms.stats["steps"]) * k
+        print(f"arena on {dev}, run_pipelined K={k}: {N_STREAMS} streams, "
+              f"{int(ms.stats['frames'])} frames in {int(ms.stats['steps'])}"
+              f" dispatches, csum == oracle on every frame")
+    snaps, valid = plan_replay(cfg, streams, dev)
+    ms = MultiStreamDecoder(cfg, streams, dev)
+    ms.stage_packed(snaps)
+    got = arena_csums(ms, ((ms.device_step(s), None, v)
+                           for s, v in zip(snaps, valid)))
+    for j, name in enumerate(STREAM_CLIPS):
+        if got[j] != want[name]:
+            fail(f"arena packed replay stream {j} ({name}) differs from the "
+                 f"oracle")
+    substeps += len(snaps)
+    print(f"arena on {dev}, packed replay: {len(snaps)} steps staged in one "
+          f"upload per dtype, csum == oracle on every frame")
+    return substeps
+
+
 def lockstep_steps(cfg, clips: dict, dev) -> list:
     """The host half of lock-step decode, done ahead for timing: every
     step's stacked inputs, already on the card, with its frame count."""
     from hvqm4_tpu_torch.convert import stack_plans
-    from hvqm4_tpu_torch.native import NativePlanner
     from hvqm4_tpu_torch.parallel.multistream import plan_steps
 
     return [(stack_plans(cfg, plans, dev), sum(p is not None for p in plans))
-            for plans in plan_steps(cfg, [clips[n] for n in STREAM_CLIPS],
-                                    planner_factory=NativePlanner)]
+            for plans in plan_steps(cfg, [clips[n] for n in STREAM_CLIPS])]
 
 
 def run_lockstep(cfg, steps, dev) -> None:
@@ -584,18 +662,120 @@ def phase_times(dev, cfg, clips: dict, tag: str) -> dict:
     t0 = time.perf_counter()
     run_lockstep(cfg, steps, dev)
     dev_s = time.perf_counter() - t0
+    lock_bytes = sum(t.numel() * t.element_size()
+                     for (plans, *rest), _n in steps
+                     for t in [*(v for p in plans for v in p.values()),
+                               *rest])
     print(f"time lock-step {N_STREAMS} streams: {frames} frames; host "
           f"planning+stacking+upload {host_s:.4f} s ({frames / host_s:.1f} "
-          f"fps), device steps {dev_s:.4f} s ({frames / dev_s:.1f} fps) "
+          f"fps), device steps {dev_s:.4f} s ({frames / dev_s:.1f} fps); "
+          f"uploads {lock_bytes / frames:.1f} B/frame in 18 copies a step "
           f"[{tag}]")
 
     device_profile(lambda: run_lockstep(cfg, steps, dev),
                    f"lock-step device steps ({frames} frames)", tag)
+    del steps
+    arena_times(cfg, clips, dev, tag, frames / host_s, frames / dev_s,
+                lock_bytes / frames)
     retail = clips["retail640.h4m"]
     device_profile(lambda: sum(1 for _ in DecoderSession(
         cfg, dev).decode_clip(retail)), "session retail640.h4m (28 frames)",
         tag)
     return times
+
+
+STAT_KEYS = ("plan_s", "assemble_s", "stage_s", "upload_s", "dispatch_s",
+             "wait_s", "dequeue_s")
+
+
+def arena_times(cfg, clips: dict, dev, tag: str, lock_host_fps: float,
+                lock_dev_fps: float, lock_bytes: float) -> None:
+    """Phase 7, the arena path beside the lock-step one: pipelined fps at
+    K = 1 and 2 (second of two runs; decoder set-up timed apart), the
+    packed replay's device phase, bytes uploaded per frame, the device's
+    busy share over a pipelined window and the launches per step."""
+    import torch
+
+    from hvqm4_tpu_torch.parallel.multistream import MultiStreamDecoder
+
+    streams = [clips[n] for n in STREAM_CLIPS]
+
+    def pipelined(k):
+        t0 = time.perf_counter()
+        ms = MultiStreamDecoder(cfg, streams, dev, steps_per_dispatch=k)
+        setup = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = sum(sum(valid) for _f, _m, valid in ms.run_pipelined())
+        torch.cuda.synchronize()
+        return ms, n, time.perf_counter() - t0, setup
+
+    for k in (1, 2):
+        pipelined(k)  # warm: allocator, pinned pages, first launches
+        ms, n, wall, setup = pipelined(k)
+        split = ", ".join(f"{key[:-2]} {1e3 * ms.stats[key] / n:.4f}"
+                          for key in STAT_KEYS)
+        print(f"time arena pipelined K={k} {N_STREAMS} streams: {n} frames "
+              f"in {wall:.4f} s = {n / wall:.1f} fps end to end "
+              f"({int(ms.stats['steps'])} dispatches; decoder set-up "
+              f"{setup:.4f} s apart); per frame ms: {split} [{tag}]")
+
+    snaps, valid = plan_replay(cfg, streams, dev)
+    n = sum(sum(v) for v in valid)
+    up = sum(s["sizes"][0] + 4 * s["sizes"][1] for s in snaps)
+    ms = MultiStreamDecoder(cfg, streams, dev)
+    packed = None
+
+    def staged():
+        nonlocal packed
+        bufs = [dict(s) for s in snaps]
+        packed = ms.stage_packed(bufs, packed)
+        for t in (ms.nest, *ms.ref_prev, *ms.ref_last):
+            t.zero_()
+        return bufs
+
+    def replay(bufs):
+        for b in bufs:
+            ms.device_step(b)
+
+    replay(staged())  # warm
+    bufs = staged()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    replay(bufs)
+    torch.cuda.synchronize()
+    dev_s = time.perf_counter() - t0
+    print(f"time arena packed replay {N_STREAMS} streams: {n} frames, "
+          f"device phase {dev_s:.4f} s = {n / dev_s:.1f} fps with the plans "
+          f"on the card; uploads {up / n:.1f} B/frame in 2 copies a step "
+          f"[{tag}]")
+    print(f"compare {N_STREAMS} streams: lock-step host {lock_host_fps:.1f} "
+          f"fps, device {lock_dev_fps:.1f} fps, {lock_bytes:.1f} B/frame "
+          f"uploaded; arena replay device {n / dev_s:.1f} fps, "
+          f"{up / n:.1f} B/frame ({lock_bytes / (up / n):.1f}x fewer) [{tag}]")
+    bufs = staged()
+    res = profile(lambda: replay(bufs))
+    if res is None:
+        print(f"profile arena packed replay: launches not measured (the "
+              f"profiler recorded no CUDA activity) [{tag}]")
+    else:
+        _wall, rows = res
+        ours = sum(c for _us, c, key in rows
+                   if "intra_synth" in key or "inter_combine" in key)
+        copies = sum(c for _us, c, key in rows if "memcpy" in key.lower())
+        total = sum(c for _us, c, _key in rows)
+        rest = total - ours - copies
+        steps = len(snaps)
+        print(f"profile arena packed replay: {steps} steps, device launches "
+              f"per step {total / steps:.2f}: the port's kernels "
+              f"{ours / steps:.2f}, copies {copies / steps:.2f}, the rest "
+              f"(unpack, slots, state rotation) {rest / steps:.2f} [{tag}]")
+    # the decoder (pinned ring, step planners) is built before the window
+    # opens: the window holds run_pipelined alone
+    ms = MultiStreamDecoder(cfg, streams, dev)
+    device_profile(lambda: sum(1 for _ in ms.run_pipelined()),
+                   f"arena pipelined K=1 ({n} frames, decoder built before "
+                   f"the window)", tag)
 
 
 def oracle_frames(oracle: Path, name: str, cfg) -> tuple:
@@ -723,6 +903,7 @@ def phase_serve(dev, cfg, clips: dict, oracle: Path, kernels: list,
                  f"{metrics['errors']}, want {want_modes} and 0")
         print(f"serve mux: {len(jobs)} mixed requests over one connection "
               f"== single-shot replies; metrics by_mode {metrics['by_mode']}")
+        batched_serve(dev, clips, replies, tag)
         torch.cuda.synchronize()
         launches = {k.symbol: k.launches for k in kernels}
 
@@ -760,6 +941,68 @@ def phase_serve(dev, cfg, clips: dict, oracle: Path, kernels: list,
         srv.server_close()
         thread.join(timeout=30)
     return launches
+
+
+def batched_serve(dev, clips: dict, replies: dict, tag: str) -> None:
+    """Phase 6's batching server: four concurrent requests, both clips in
+    YUV and RGB and one truncated clip, against the unbatched replies
+    (checked against the oracle above)."""
+    import torch
+
+    from hvqm4_tpu_torch import serve
+    from hvqm4_tpu_torch.kernels.csc import YUV_TO_RGB
+
+    srv = serve.DecodeServer(("127.0.0.1", 0), device=dev,
+                             batch_window_s=0.25, max_batch=4)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    truncated = clips[CLIPS[0]][:-30]
+    jobs = [(CLIPS[0], "yuv"), (CLIPS[1], "rgb"), (CLIPS[1], "yuv"),
+            ("truncated", "yuv")]
+    modes = {"yuv": serve.MODE_YUV, "rgb": serve.MODE_RGB}
+    out = {}
+
+    def req(i, name, mode):
+        data = truncated if name == "truncated" else clips[name]
+        try:
+            out[i] = serve.decode_remote(*srv.server_address, data,
+                                         mode=modes[mode], timeout=300)
+        except RuntimeError as e:
+            out[i] = e
+
+    csc_before = YUV_TO_RGB.launches
+    try:
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=req, args=(i, n, m))
+                   for i, (n, m) in enumerate(jobs)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        metrics = serve.fetch_metrics(*srv.server_address)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=30)
+    for i, (name, mode) in enumerate(jobs[:3]):
+        if out.get(i) != replies[name, mode]:
+            fail(f"serve batched {name} {mode}: differs from the checked "
+                 f"unbatched reply")
+    if not isinstance(out.get(3), RuntimeError):
+        fail(f"serve batched: the truncated clip did not fail ({out.get(3)})")
+    nb, nr = metrics["batches"], metrics["batched_requests"]
+    if nr not in (3, 4) or not 1 <= nb < nr or metrics["errors"] != 1:
+        fail(f"serve batched: batches {nb}, batched_requests {nr}, errors "
+             f"{metrics['errors']}; want coalescing and one error")
+    if YUV_TO_RGB.launches == csc_before:
+        fail("serve batched: the RGB reply never launched yuv_to_rgb")
+    print(f"serve batched: {len(jobs)} concurrent requests in {wall:.4f} s; "
+          f"yuv == oracle --hash, rgb == integer formula (== the checked "
+          f"replies), the truncated clip failed alone; {nr} requests in "
+          f"{nb} batch(es), yuv_to_rgb launched "
+          f"{YUV_TO_RGB.launches - csc_before} times [{tag}]")
 
 
 def profile(fn):
@@ -874,6 +1117,21 @@ def main() -> int:
         if count == 0 and sym != "hvqm4_yuv_to_rgb":
             fail(f"{sym} never launched on the decode path")
 
+    # phase 5b: the arena decoder, counted
+    for k in kernels:
+        k.launches = 0
+    substeps = phase_arena(cfg, clips, dev, want)
+    torch.cuda.synchronize()
+    arena_launches = {k.symbol: k.launches for k in kernels}
+    print(f"launches on the arena path (phase 5b, {substeps} decode steps): "
+          f"{arena_launches}")
+    for sym, n in (("hvqm4_intra_synth_acc", 3 * substeps),
+                   ("hvqm4_inter_combine", 3 * substeps),
+                   ("hvqm4_intra_synth_noacc", 0)):
+        if arena_launches[sym] != n:
+            fail(f"{sym} launched {arena_launches[sym]} times on the arena "
+                 f"path, want {n}")
+
     # phase 6: the decode service, counted
     for k in kernels:
         k.launches = 0
@@ -900,6 +1158,7 @@ def main() -> int:
                      "source": f"hvqm4_tpu_torch/kernels/csrc/{sources[k.symbol]}",
                      "replaces": k.replaces,
                      "launches": (decode_launches[k.symbol]
+                                  + arena_launches[k.symbol]
                                   + serve_launches[k.symbol]),
                      "max_abs_err": err[name], "ms": t["ms"],
                      "plain_ms": t["plain_ms"],

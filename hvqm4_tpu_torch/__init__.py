@@ -21,10 +21,16 @@ The device half is rewritten here:
 - `ops.csc`: YUV→RGB (routed by device) and the bilinear resize;
 - `models.vit`: the ViT encoder, fed from decoded frames;
 - `utils.hashing`: on-device `oracle --csum`, FNV-1a, the oracle's digests;
-- `parallel.multistream`: the lock-step N-stream decode step;
-- `session`, `cli`: the frame-at-a-time API and command line;
-- `serve`: the decode service (YUV, RGB and ViT-embedding requests), its
-  wire protocol and its clients.
+- `parallel.multistream`: the N-stream decode, the main path: the arena
+  `MultiStreamDecoder` (C++ step planning into two packed staging buffers,
+  two uploads a step, plain-PyTorch unpack, K fused lock-step decodes,
+  planning pipelined on worker threads), GOP-parallel decode of one clip,
+  and the per-field lock-step step both share;
+- `session`, `cli`: the frame-at-a-time API and command line
+  (`decode --gop-parallel` and `verify --batched` on the arena decoder);
+- `serve`: the decode service (YUV, RGB and ViT-embedding requests, with
+  continuous batching on the arena decoder), its wire protocol and its
+  clients.
 
 Importing this package imports neither JAX nor the CUDA toolchain.
 """
@@ -37,8 +43,8 @@ def __getattr__(name):  # lazy, like hvqm4_tpu: importing the package is free
         from . import session
 
         return getattr(session, name)
-    if name == "multi_frame_step":
-        from .parallel.multistream import multi_frame_step
+    if name in ("MultiStreamDecoder", "multi_frame_step"):
+        from .parallel import multistream
 
-        return multi_frame_step
+        return getattr(multistream, name)
     raise AttributeError(name)

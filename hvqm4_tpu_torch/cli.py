@@ -5,8 +5,13 @@
                                           [--start-block K] [--frames N]
                                           [--display-order] [--profile]
                                           [--ppm DIR] [--y4m]
+    python -m hvqm4_tpu_torch.cli decode  clip.h4m [out.yuv] --gop-parallel
     python -m hvqm4_tpu_torch.cli hash    clip.h4m [--device cuda]
-    python -m hvqm4_tpu_torch.cli verify  clip.h4m [--device cuda]
+    python -m hvqm4_tpu_torch.cli verify  clip.h4m [--device cuda] [--batched]
+
+`decode --gop-parallel` decodes the clip's GOP blocks as parallel streams
+of the arena `MultiStreamDecoder`; `verify --batched` checks that decoder
+on one stream through on-device checksums against `oracle --csum`.
 
 `--device` defaults to `cuda`. Without a card the command fails with a
 one-line error; it never falls back to the CPU. `--device cpu` runs the
@@ -29,8 +34,9 @@ from . import refdec
 from .container import ContainerError, Demuxer
 from .native import PlannerError
 from .ops.csc import frame_to_rgb
+from .parallel.multistream import MultiStreamDecoder, decode_clip_gop_parallel
 from .session import DecoderSession
-from .utils.hashing import fnv1a
+from .utils.hashing import batch_csum, fnv1a, frame_csum, oracle_csums
 
 PROG = "hvqm4_tpu_torch"
 _ORACLE = Path(__file__).resolve().parent.parent / "oracle" / "hvqm4_oracle"
@@ -82,6 +88,8 @@ def cmd_decode(args) -> int:
     data = Path(args.clip).read_bytes()
     demux = Demuxer(data)
     cfg = demux.info.cfg
+    if args.gop_parallel:
+        return _decode_gop_parallel(args, data, dev)
     sess = DecoderSession(cfg, dev, profile=args.profile)
     if args.y4m:
         # a presentation container: frames in display order, to the output
@@ -116,6 +124,29 @@ def cmd_decode(args) -> int:
     return 0
 
 
+def _decode_gop_parallel(args, data: bytes, dev) -> int:
+    """`decode --gop-parallel`: the clip's GOP blocks as parallel streams,
+    whole clip, decode order, raw YUV; the flags it would otherwise ignore
+    are refused."""
+    for flag, name in ((args.ppm, "--ppm"),
+                       (args.start_block, "--start-block"),
+                       (args.display_order, "--display-order"),
+                       (args.y4m, "--y4m"),
+                       (args.frames is not None, "--frames"),
+                       (args.profile, "--profile")):
+        if flag:
+            print(f"{PROG}: error: {name} is not supported with "
+                  f"--gop-parallel", file=sys.stderr)
+            return 1
+    n = 0
+    with open(args.output or os.devnull, "wb") as out:
+        for _bi, yuv in decode_clip_gop_parallel(data, dev):
+            out.write(yuv)
+            n += 1
+    print(f"decoded {n} frames on {dev} (gop-parallel)", file=sys.stderr)
+    return 0
+
+
 def _write_ppm(frame, cfg, path: Path) -> None:
     """One frame as a binary PPM, converted on the frame's device."""
     rgb = frame_to_rgb(frame.planes, cfg.h_samp, cfg.v_samp).cpu().numpy()
@@ -138,10 +169,13 @@ def cmd_hash(args) -> int:
 
 def cmd_verify(args) -> int:
     """Decode with the NumPy golden model and the torch port (and the C
-    oracle when built) and compare byte for byte."""
+    oracle when built) and compare byte for byte; with `--batched`, check
+    the arena decoder through on-device checksums instead."""
     dev = _device(args.device)
     data = Path(args.clip).read_bytes()
     cfg = Demuxer(data).info.cfg
+    if args.batched:
+        return _verify_batched(cfg, data, Path(args.clip), dev)
     golden = [b"".join(p.tobytes() for p in planes)
               for planes in refdec.decode_clip(cfg, data)]
     got = [f.yuv_bytes() for f in DecoderSession(cfg, dev).decode_clip(data)]
@@ -158,6 +192,27 @@ def cmd_verify(args) -> int:
         ok = ok and oracle_ok
     else:
         print("C oracle not built (make -C oracle) — skipped")
+    return 0 if ok else 1
+
+
+def _verify_batched(cfg, data: bytes, clip_path: Path, dev) -> int:
+    """The arena `MultiStreamDecoder` on one stream, every frame's
+    checksum taken on the device (4 bytes a frame leave it), against
+    `oracle --csum`, or against the NumPy golden model when the oracle is
+    not built."""
+    if _ORACLE.exists():
+        golden = "C oracle"
+        want = oracle_csums(_ORACLE, clip_path)
+    else:
+        golden = "NumPy golden"
+        want = [f"{int(frame_csum([torch.from_numpy(p) for p in planes])):08x}"
+                for planes in refdec.decode_clip(cfg, data)]
+    ms = MultiStreamDecoder(cfg, [data], dev)
+    got = [f"{int(batch_csum(*frames)[0]):08x}"
+           for frames, _metas, valid in ms.run_pipelined() if valid[0]]
+    ok = got == want
+    print(f"batched decode on {dev} vs {golden} ({len(want)} frames, "
+          f"on-device checksum): {'MATCH' if ok else 'MISMATCH'}")
     return 0 if ok else 1
 
 
@@ -183,6 +238,8 @@ def main(argv=None) -> int:
     p.add_argument("--y4m", action="store_true",
                    help="write YUV4MPEG2 instead of raw YUV (to OUTPUT, or "
                         "stdout; implies --display-order)")
+    p.add_argument("--gop-parallel", action="store_true",
+                   help="batch independent GOP blocks as parallel streams")
     p.set_defaults(fn=cmd_decode)
 
     p = sub.add_parser("hash")
@@ -191,6 +248,9 @@ def main(argv=None) -> int:
 
     p = sub.add_parser("verify")
     p.add_argument("clip")
+    p.add_argument("--batched", action="store_true",
+                   help="check the batched arena path via on-device "
+                        "checksums (4 bytes a frame leave the device)")
     p.set_defaults(fn=cmd_verify)
 
     for p in sub.choices.values():

@@ -38,9 +38,12 @@ answered in completion order, so a slow clip does not block a fast one:
 Requests decode on handler and mux worker threads, one at a time under the
 server's lock; each `.cpu()` in `_chunks` is the point where a reply waits
 for the card, and a CUDA error there becomes that request's error reply.
-Continuous batching (`--batch-window-ms`) needs the arena
-`MultiStreamDecoder`, which the port does not have yet, so a window above
-0 is refused and `--max-batch` is not a flag.
+
+Continuous batching (`--batch-window-ms W --max-batch B`): a dispatcher
+thread coalesces same-shape requests arriving within W ms (up to B) into
+one arena `MultiStreamDecoder` run, its stream count padded to a power of
+two with empty lanes. Each request still gets its own reply, byte-equal to
+the unbatched server's; a corrupt clip poisons only its own stream.
 
 Client helpers: `decode_remote(host, port, clip, mode, token=...)`,
 `MuxClient(host, port, token=...)` and `fetch_metrics(host, port)`.
@@ -67,6 +70,7 @@ from .cli import DeviceError, _device
 from .container import Demuxer
 from .models.vit import ViTConfig, init_vit
 from .ops.csc import frame_to_rgb, resize_bilinear
+from .parallel.multistream import MultiStreamDecoder
 from .session import DecoderSession
 
 PROG = "hvqm4_tpu_torch.serve"
@@ -187,7 +191,10 @@ class _Handler(socketserver.BaseRequestHandler):
                 srv.count("busy_rejections")
                 reply(STATUS_BUSY, [b"server busy, retry later"])
                 return
-            chunks = srv.decode(clip, mode)
+            if srv.batching:
+                chunks = srv.decode_batched(clip, mode)
+            else:
+                chunks = srv.decode(clip, mode)
             # record before replying: a client that sees the reply must see
             # its own request in a subsequent metrics snapshot
             srv.record_success(mode, len(clip), sum(map(len, chunks)),
@@ -299,7 +306,9 @@ class DecodeServer(socketserver.ThreadingTCPServer):
                  vit_cfg: ViTConfig | None = None,
                  auth_token: bytes | str = b"", max_pending: int = 8,
                  max_pixels: int = 4096 * 4096, max_sessions: int = 16,
-                 socket_timeout_s: float = 120.0, mux_workers: int = 4):
+                 socket_timeout_s: float = 120.0,
+                 batch_window_s: float = 0.0, max_batch: int = 8,
+                 mux_workers: int = 4):
         self.device = _device(str(device))
         super().__init__(addr, _Handler)
         self.max_clip_bytes = max_clip_bytes
@@ -307,11 +316,17 @@ class DecodeServer(socketserver.ThreadingTCPServer):
         self.socket_timeout_s = socket_timeout_s
         self.auth_token = (auth_token.encode()
                            if isinstance(auth_token, str) else auth_token)
+        self.batching = batch_window_s > 0
+        self.batch_window_s = batch_window_s
+        self.max_batch = max(max_batch, 1)
         # per-session decode concurrency for multiplexed ('H4MX') clients;
         # in-flight requests beyond this queue inside the session's pool
         # (global admission still bounds actual decode concurrency)
         self.mux_workers = max(mux_workers, 1)
-        slots = 1 + max(max_pending, 0)
+        # with batching, at least max_batch requests must be admissible at
+        # once or batches can never fill
+        slots = max(1 + max(max_pending, 0),
+                    self.max_batch if self.batching else 1)
         self.admission = threading.BoundedSemaphore(slots)
         # ingress bound: active + pending + a small recv margin; each slot
         # can buffer up to max_clip_bytes, so total ingress RAM is bounded
@@ -327,9 +342,28 @@ class DecodeServer(socketserver.ThreadingTCPServer):
             "requests_total": 0, "errors": 0, "busy_rejections": 0,
             "auth_failures": 0, "frames_served": 0, "bytes_in": 0,
             "bytes_out": 0, "latency_last_s": 0.0, "latency_sum_s": 0.0,
+            "batches": 0, "batched_requests": 0, "batch_size_last": 0,
             "mux_sessions": 0, "mux_requests": 0,
             "by_mode": {"yuv": 0, "rgb": 0, "embed": 0},
         }
+        self._bq: list = []
+        self._bq_cond = threading.Condition()
+        self._shutdown_flag = False
+        if self.batching:
+            threading.Thread(target=self._dispatch_loop, daemon=True,
+                             name="batch-dispatcher").start()
+
+    def shutdown(self):
+        self._shutdown_flag = True
+        with self._bq_cond:
+            # fail queued batch waiters instead of orphaning them: their
+            # handler threads hold admission/ingress slots while waiting
+            for job in self._bq:
+                job.error = "server shutting down"
+                job.event.set()
+            self._bq.clear()
+            self._bq_cond.notify_all()
+        super().shutdown()
 
     # -- metrics ---------------------------------------------------------------
 
@@ -363,8 +397,10 @@ class DecodeServer(socketserver.ThreadingTCPServer):
         m = json.loads(self.metrics_json())
         counters = ["requests_total", "errors", "busy_rejections",
                     "auth_failures", "frames_served", "bytes_in", "bytes_out",
-                    "mux_sessions", "mux_requests"]
-        gauges = ["latency_last_s", "latency_avg_s", "uptime_s"]
+                    "batches", "batched_requests", "mux_sessions",
+                    "mux_requests"]
+        gauges = ["latency_last_s", "latency_avg_s", "uptime_s",
+                  "batch_size_last"]
         lines = []
         for key in counters:
             name = f"hvqm4_serve_{key}"
@@ -415,17 +451,125 @@ class DecodeServer(socketserver.ThreadingTCPServer):
                 out.append(emb[0].cpu().numpy().astype("<f4").tobytes())
         return out
 
-    def decode(self, clip: bytes, mode: int) -> list[bytes]:
-        cfg = Demuxer(clip).info.cfg
+    def _checked_cfg(self, demux: Demuxer):
+        cfg = demux.info.cfg
         # untrusted header: cap declared dimensions before any allocation
         # keyed on them
         if cfg.width * cfg.height > self.max_pixels:
             raise ValueError(
                 f"frame {cfg.width}x{cfg.height} exceeds server pixel cap")
+        return cfg
+
+    def decode(self, clip: bytes, mode: int) -> list[bytes]:
+        cfg = self._checked_cfg(Demuxer(clip))
         with self._lock:
             sess = self._session(cfg)
             frames = [f.planes for f in sess.decode_clip(clip)]
             return self._chunks(frames, cfg, mode)
+
+    # -- continuous batching -----------------------------------------------------
+
+    def decode_batched(self, clip: bytes, mode: int) -> list[bytes]:
+        """Enqueue for the dispatcher; block until this request's batch ran."""
+        # demux ONCE per request so a malformed clip fails HERE (or poisons
+        # only its own stream later), never the whole batch
+        d = Demuxer(clip)
+        cfg = self._checked_cfg(d)
+        records = [(r.block_index, r.frame_char, r.payload)
+                   for r in d.video_records()]
+        job = _BatchJob(cfg, records)
+        with self._bq_cond:
+            if self._shutdown_flag:
+                # the dispatcher is exiting and will never drain this job
+                raise RuntimeError("server shutting down")
+            self._bq.append(job)
+            self._bq_cond.notify_all()
+        if not job.event.wait(timeout=max(self.socket_timeout_s, 600.0)):
+            # withdraw an abandoned job so the dispatcher never decodes for
+            # a client that already gave up
+            with self._bq_cond:
+                if job in self._bq:
+                    self._bq.remove(job)
+            raise RuntimeError("batched decode timed out")
+        if job.error is not None:
+            raise RuntimeError(job.error)
+        with self._lock:
+            return self._chunks(job.frames, cfg, mode)
+
+    def _dispatch_loop(self) -> None:
+        while not self._shutdown_flag:
+            with self._bq_cond:
+                while not self._bq and not self._shutdown_flag:
+                    self._bq_cond.wait(timeout=0.5)
+                if self._shutdown_flag:
+                    return
+                first = self._bq.pop(0)
+            batch = [first]
+            deadline = time.monotonic() + self.batch_window_s
+            while len(batch) < self.max_batch:
+                rem = deadline - time.monotonic()
+                if rem <= 0:
+                    break
+                with self._bq_cond:
+                    more = [j for j in self._bq if j.cfg == first.cfg]
+                    for j in more[:self.max_batch - len(batch)]:
+                        self._bq.remove(j)
+                        batch.append(j)
+                    if len(batch) < self.max_batch:
+                        # block until a new enqueue (notify_all) or the
+                        # window's end, even when the queue holds only
+                        # other-shape jobs
+                        self._bq_cond.wait(timeout=rem)
+            self._run_batch(batch)
+
+    def _run_batch(self, batch: list) -> None:
+        """One `MultiStreamDecoder` run over the batch's clips; each job gets
+        its frames (plane tensors on the device) or its error."""
+        cfg = batch[0].cfg
+        try:
+            # pad the stream count to the next power of two (filler lanes
+            # are empty record lists, masked from the first step): a few
+            # stream counts, not one per arrival count
+            n_pad = 1
+            while n_pad < len(batch):
+                n_pad *= 2
+            lanes = [j.records for j in batch] + [[] for _ in
+                                                  range(n_pad - len(batch))]
+            with self._lock:
+                ms = MultiStreamDecoder(cfg, [], self.device,
+                                        record_lists=lanes)
+                out: list[list] = [[] for _ in batch]
+                for frames, _metas, valid in ms.run_pipelined():
+                    for si, ok in enumerate(valid[:len(batch)]):
+                        if ok:
+                            out[si].append([frames[pi][si] for pi in range(3)])
+            for j, s, res in zip(batch, ms.streams, out):
+                if s.failed:
+                    j.error = "clip failed to decode (stream poisoned)"
+                else:
+                    j.frames = res
+                j.event.set()
+            with self._mlock:
+                self._metrics["batches"] += 1
+                self._metrics["batched_requests"] += len(batch)
+                self._metrics["batch_size_last"] = len(batch)
+        except Exception as e:  # batch-level failure: fail every waiter
+            for j in batch:
+                j.error = str(e)
+                j.event.set()
+
+
+class _BatchJob:
+    """One batched request: demuxed records in, per-frame planes out."""
+
+    __slots__ = ("cfg", "records", "event", "frames", "error")
+
+    def __init__(self, cfg, records):
+        self.cfg = cfg
+        self.records = records
+        self.event = threading.Event()
+        self.frames = None
+        self.error = None
 
 
 def decode_remote(host: str, port: int, clip: bytes,
@@ -590,16 +734,14 @@ def main(argv=None) -> int:
     ap.add_argument("--socket-timeout", type=float, default=120.0,
                     help="per-connection socket timeout in seconds")
     ap.add_argument("--batch-window-ms", type=float, default=0.0,
-                    help="continuous batching; not ported: only 0 (off)")
+                    help="coalesce same-shape requests arriving within this "
+                         "window into one multi-stream batch (0 = off)")
+    ap.add_argument("--max-batch", type=int, default=8,
+                    help="max requests per coalesced batch")
     ap.add_argument("--mux-workers", type=int, default=4,
                     help="per-connection decode concurrency for multiplexed "
                          "('H4MX') sessions")
     args = ap.parse_args(argv)
-    if args.batch_window_ms > 0:
-        print(f"{PROG}: error: --batch-window-ms needs the arena "
-              f"MultiStreamDecoder, which the port does not have yet",
-              file=sys.stderr)
-        return 1
     try:
         srv = DecodeServer((args.host, args.port), device=args.device,
                            auth_token=args.auth_token,
@@ -607,6 +749,8 @@ def main(argv=None) -> int:
                            max_pixels=args.max_pixels,
                            max_sessions=args.max_sessions,
                            socket_timeout_s=args.socket_timeout,
+                           batch_window_s=args.batch_window_ms / 1000.0,
+                           max_batch=args.max_batch,
                            mux_workers=args.mux_workers)
     except (DeviceError, OSError) as e:
         print(f"{PROG}: error: {e}", file=sys.stderr)
@@ -615,9 +759,11 @@ def main(argv=None) -> int:
     # signal handlers run on the main thread: hand it to a helper thread
     signal.signal(signal.SIGTERM, lambda *_: threading.Thread(
         target=srv.shutdown, daemon=True).start())
+    batching = (f"batch window {args.batch_window_ms} ms, max "
+                f"{srv.max_batch}" if srv.batching else "no batching")
     print(f"{PROG}: decode service on {args.host}:{args.port} "
-          f"(device={srv.device}, auth={'on' if args.auth_token else 'off'})",
-          file=sys.stderr)
+          f"(device={srv.device}, auth={'on' if args.auth_token else 'off'}, "
+          f"{batching})", file=sys.stderr)
     try:
         srv.serve_forever()
     except KeyboardInterrupt:

@@ -1,6 +1,7 @@
 """On the card: the CUDA kernels against their plain versions, the session
-on `cuda` against the C oracle, and the decode service on `cuda` against
-the same service on the CPU.
+and the arena decoder on `cuda` against the C oracle and the CPU, and the
+decode service on `cuda`, unbatched and batched, against the same service
+on the CPU.
 
 Every test here needs a CUDA card and skips without one. The file imports
 no JAX, so it also runs where JAX is not installed; tests/conftest.py
@@ -26,7 +27,9 @@ from hvqm4_tpu_torch.kernels.csc import (YUV_TO_RGB, _vector_ok, yuv_to_rgb,
                                          yuv_to_rgb_plain)
 from hvqm4_tpu_torch.kernels.inter import inter_combine, inter_combine_plain
 from hvqm4_tpu_torch.kernels.intra import intra_synth, intra_synth_plain
+from hvqm4_tpu_torch.parallel.multistream import MultiStreamDecoder
 from hvqm4_tpu_torch.session import DecoderSession
+from hvqm4_tpu_torch.utils.hashing import batch_csum, oracle_csums
 from tools.encoder import make_clip
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -246,3 +249,105 @@ def test_cuda_serve_matches_cpu_serve(cuda):
         for s in servers:
             s.shutdown()
             s.server_close()
+
+
+def _oracle():
+    subprocess.run(["make", "-s", "-C", str(REPO / "oracle")], check=True)
+    return REPO / "oracle" / "hvqm4_oracle"
+
+
+def _arena_run(cfg, clips, dev, k, plan_ahead):
+    """Every step of a pipelined arena run, kept on `dev` with no
+    synchronisation in the loop: per step (frame copies, csums, valid)."""
+    ms = MultiStreamDecoder(cfg, clips, dev, steps_per_dispatch=k,
+                            plan_ahead=plan_ahead)
+    return [([f.clone() for f in frames], batch_csum(*frames), valid)
+            for frames, _metas, valid in ms.run_pipelined()]
+
+
+def _csums(steps, n):
+    per = [[] for _ in range(n)]
+    for _frames, cs, valid in steps:
+        cs = cs.cpu().tolist()
+        for j in range(n):
+            if valid[j]:
+                per[j].append(f"{cs[j]:08x}")
+    return per
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2])
+def test_cuda_arena_matches_oracle_and_cpu(cuda, tmp_path, k):
+    """The arena decoder on the card, plan_ahead 2 and a consumer that
+    never waits for the card (so the planning workers refill pinned ring
+    slots while earlier uploads may still be in flight): every frame's
+    csum equals `oracle --csum`, and every frame equals the CPU arena's."""
+    oracle = _oracle()
+    cfg = SeqConfig(128, 96)
+    clips = [make_clip(cfg, ["IBBPBP", "IPP"], seed=s) for s in (3, 4)]
+    clips.append(make_clip(cfg, ["IPB"], seed=5))
+    gpu = _arena_run(cfg, clips, cuda, k, 2)
+    cpu = _arena_run(cfg, clips, "cpu", k, 2)
+    assert len(gpu) == len(cpu)
+    for (fg, _cg, vg), (fc, _cc, vc) in zip(gpu, cpu):
+        assert vg == vc
+        for a, b in zip(fg, fc):
+            assert torch.equal(a.cpu(), b)
+    want = []
+    for i, clip in enumerate(clips):
+        path = tmp_path / f"c{i}.h4m"
+        path.write_bytes(clip)
+        want.append(oracle_csums(oracle, path))
+    assert _csums(gpu, len(clips)) == want
+    # the 640x480 clips, 4 streams of each, against the oracle
+    names = ["ref640.h4m", "retail640.h4m"] * 4
+    data = {n: (REPO / "testdata" / n).read_bytes() for n in names}
+    steps = _arena_run(SeqConfig(640, 480), [data[n] for n in names], cuda,
+                       k, 2)
+    assert _csums(steps, 8) == [oracle_csums(oracle, REPO / "testdata" / n)
+                                for n in names]
+
+
+@pytest.mark.cuda
+def test_cuda_batched_serve_matches_cpu_batched_serve(cuda):
+    """Concurrent YUV and RGB requests and a poisoned clip through the
+    batching server on the card and on the CPU: equal replies, the
+    poisoned clip failing alone on both."""
+    import struct
+
+    cfg = SeqConfig(64, 48)
+    clips = [make_clip(cfg, ["IPBPB", "IP"], seed=70 + i) for i in range(3)]
+    bad = bytearray(make_clip(cfg, ["IPB", "IPB"], seed=73))
+    (len0,) = struct.unpack_from(">I", bad, 0x44)
+    struct.pack_into(">I", bad, 0x44 + 8 + len0 + 8 + 8 + 12, 0xFFFFFFFF)
+    jobs = [(clips[0], serve.MODE_YUV), (clips[1], serve.MODE_RGB),
+            (clips[2], serve.MODE_RGB), (bytes(bad), serve.MODE_YUV)]
+    replies = []
+    for dev in (cuda, "cpu"):
+        srv = serve.DecodeServer(("127.0.0.1", 0), device=dev,
+                                 batch_window_s=0.25, max_batch=4)
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        out = {}
+
+        def req(i, clip, mode, addr=srv.server_address, out=out):
+            try:
+                out[i] = serve.decode_remote(*addr, clip, mode=mode)
+            except RuntimeError as e:
+                out[i] = str(e)
+
+        try:
+            threads = [threading.Thread(target=req, args=(i, c, m))
+                       for i, (c, m) in enumerate(jobs)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=300)
+            metrics = serve.fetch_metrics(*srv.server_address)
+        finally:
+            srv.shutdown()
+            srv.server_close()
+        assert metrics["batched_requests"] == 4 and metrics["batches"] <= 2
+        replies.append([out[i] for i in range(len(jobs))])
+    gpu, cpu = replies
+    assert gpu == cpu
+    assert "poisoned" in gpu[3] and all(len(r) == 7 for r in gpu[:3])

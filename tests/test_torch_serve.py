@@ -112,7 +112,7 @@ def test_metrics_count_by_mode():
         m = serve.fetch_metrics(host, p)
         assert m["by_mode"] == {"yuv": 2, "rgb": 1, "embed": 1}
         assert m["requests_total"] == 4 and m["frames_served"] == 8
-        assert m["errors"] == 0 and "batches" not in m  # no batching
+        assert m["errors"] == 0 and m["batches"] == 0  # no batching
         # the lazily built ViT is the port's, on the server's device
         vcfg, model = srv._vit
         assert vcfg == ViTConfig(*VIT_ARGS) and isinstance(model, ViT)
@@ -165,18 +165,142 @@ def test_oversized_clip_gets_an_error_reply(servers):
     assert struct.unpack("<II", head[4:])[0] == serve.STATUS_ERROR
 
 
-def test_main_refuses_batching_with_one_line(capsys):
+# -- continuous batching: the port's server and the JAX package's ------------
+
+def _batched(impl):
+    """A batching server of the port (on the CPU) or of the JAX package."""
+    if impl == "port":
+        return _start(serve.DecodeServer(("127.0.0.1", 0), device="cpu",
+                                         batch_window_s=0.25, max_batch=4))
+    return _start(jserve.DecodeServer(("127.0.0.1", 0), backend="jax",
+                                      batch_window_s=0.25, max_batch=4))
+
+
+def _poisoned(clip: bytes) -> bytes:
+    """A clip whose second GOP block fails to plan (stream-size entry of
+    0xFFFFFFFF): it demuxes, then poisons its own stream in the batch."""
+    body = 0x44
+    (len0,) = struct.unpack_from(">I", clip, body)
+    out = bytearray(clip)
+    struct.pack_into(">I", out, body + 8 + len0 + 8 + 8 + 12, 0xFFFFFFFF)
+    return bytes(out)
+
+
+@pytest.mark.parametrize("impl", ["port", "jax"])
+def test_continuous_batching_matches_unbatched(servers, impl):
+    """Three concurrent 64x48 requests coalesce into one or two batches,
+    each reply byte-equal to the unbatched port server's; a truncated clip
+    fails at its demux and a poisoned one inside the batch, each alone."""
+    cfg = SeqConfig(64, 48)
+    clips = [make_clip(cfg, ["IPB"], seed=95 + i) for i in range(3)]
+    truncated = make_clip(cfg, ["IPB"], seed=99)[:-30]
+    poisoned = _poisoned(make_clip(cfg, ["IPB", "IPB"], seed=98))
+    modes = [serve.MODE_YUV, serve.MODE_RGB, serve.MODE_YUV]
+    want = [serve.decode_remote(*servers[0].server_address, c, mode=m)
+            for c, m in zip(clips, modes)]
+    srv = _batched(impl)
+    host, p = srv.server_address
+    try:
+        results, errs = {}, {}
+
+        def req(i, clip, mode):
+            try:
+                results[i] = serve.decode_remote(host, p, clip, mode=mode)
+            except RuntimeError as e:
+                errs[i] = str(e)
+
+        jobs = list(zip(clips + [truncated, poisoned],
+                        modes + [serve.MODE_YUV] * 2))
+        threads = [threading.Thread(target=req, args=(i, c, m))
+                   for i, (c, m) in enumerate(jobs)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=180)
+        assert not any(th.is_alive() for th in threads)
+        assert [results.get(i) for i in range(3)] == want
+        assert sorted(errs) == [3, 4] and "poisoned" in errs[4]
+        m = serve.fetch_metrics(host, p)
+        assert m["batched_requests"] == 4 and m["errors"] == 2
+        assert 1 <= m["batches"] <= 2, m
+    finally:
+        _stop(srv)
+
+
+@pytest.mark.parametrize("impl", ["port", "jax"])
+def test_mux_batching_coalesces(servers, impl):
+    """Concurrent submissions over ONE mux connection coalesce too."""
+    cfg = SeqConfig(64, 48)
+    clips = [make_clip(cfg, ["IP"], seed=130 + i) for i in range(3)]
+    want = [serve.decode_remote(*servers[0].server_address, c) for c in clips]
+    srv = _batched(impl)
+    try:
+        with serve.MuxClient(*srv.server_address) as mc:
+            ids = [mc.submit(c) for c in clips]
+            assert [mc.result(rid, timeout=180) for rid in ids] == want
+        m = serve.fetch_metrics(*srv.server_address)
+        assert m["batched_requests"] == 3
+        assert 1 <= m["batches"] <= 2, m
+    finally:
+        _stop(srv)
+
+
+@pytest.mark.parametrize("impl", ["port", "jax"])
+def test_batch_metrics_in_json_and_prometheus(impl):
+    srv = _batched(impl)
+    try:
+        host, p = srv.server_address
+        clip = make_clip(SeqConfig(32, 16), ["IP"], seed=9)
+        assert len(serve.decode_remote(host, p, clip)) == 2
+        m = serve.fetch_metrics(host, p)
+        assert (m["batches"], m["batched_requests"],
+                m["batch_size_last"]) == (1, 1, 1)
+        (prom,) = serve.decode_remote(host, p, b"",
+                                      mode=serve.MODE_METRICS_PROM)
+        lines = prom.decode().splitlines()
+        for line in ("# TYPE hvqm4_serve_batches_total counter",
+                     "hvqm4_serve_batches_total 1",
+                     "hvqm4_serve_batched_requests_total 1",
+                     "# TYPE hvqm4_serve_batch_size_last gauge",
+                     "hvqm4_serve_batch_size_last 1"):
+            assert line in lines
+    finally:
+        _stop(srv)
+
+
+def test_main_batching_flags_reach_the_server(monkeypatch, capsys):
+    seen = {}
+
+    class Recorder:
+        def __init__(self, addr, **kw):
+            seen.update(kw, addr=addr)
+            self.device = kw["device"]
+            self.batching = kw["batch_window_s"] > 0
+            self.max_batch = kw["max_batch"]
+
+        def serve_forever(self):
+            seen["served"] = True
+
+        def server_close(self):
+            pass
+
+    monkeypatch.setattr(serve, "DecodeServer", Recorder)
+    monkeypatch.setattr(serve.signal, "signal", lambda *args: None)
     assert serve.main(["--port", "0", "--device", "cpu",
-                       "--batch-window-ms", "5"]) == 1
-    err = capsys.readouterr().err.strip()
-    assert len(err.splitlines()) == 1 and "--batch-window-ms" in err
-
-
-def test_main_has_no_max_batch_flag(capsys):
-    with pytest.raises(SystemExit) as e:
-        serve.main(["--port", "0", "--device", "cpu", "--max-batch", "16"])
-    assert e.value.code == 2
-    assert "unrecognized arguments: --max-batch" in capsys.readouterr().err
+                       "--batch-window-ms", "250", "--max-batch", "4"]) == 0
+    assert seen["batch_window_s"] == 0.25 and seen["max_batch"] == 4
+    assert seen["served"]
+    assert "batch window 250.0 ms, max 4" in capsys.readouterr().err
+    # the real server admits a whole batch at once, whatever max_pending
+    monkeypatch.undo()
+    real = _start(serve.DecodeServer(("127.0.0.1", 0), device="cpu",
+                                     batch_window_s=0.25, max_batch=16,
+                                     max_pending=2))
+    try:
+        assert real.batching and real.max_batch == 16
+        assert all(real.admission.acquire(blocking=False) for _ in range(16))
+    finally:
+        _stop(real)
 
 
 def test_main_without_cuda_fails_with_one_line(capsys):

@@ -246,18 +246,31 @@ for name in mods:
 from hvqm4_tpu_torch import serve
 from hvqm4_tpu_torch.container import Demuxer
 from hvqm4_tpu_torch.session import DecoderSession
-from hvqm4_tpu_torch.parallel.multistream import decode_lockstep
+from hvqm4_tpu_torch.parallel.multistream import (MultiStreamDecoder,
+                                                  decode_lockstep)
 clip = open(sys.argv[1], "rb").read()
 cfg = Demuxer(clip).info.cfg
 frames = [f.yuv_bytes() for f in DecoderSession(cfg, "cpu").decode_clip(clip)]
 steps = list(decode_lockstep(cfg, [clip], "cpu"))
 assert len(frames) == len(steps) == 3
+ms = MultiStreamDecoder(cfg, [clip, clip], "cpu", steps_per_dispatch=2)
+arena = [b"".join(p[1].numpy().tobytes() for p in fr)
+         for fr, _metas, valid in ms.run_pipelined() if valid[1]]
+assert arena == frames
 srv = serve.DecodeServer(("127.0.0.1", 0), device="cpu")
 threading.Thread(target=srv.serve_forever, daemon=True).start()
 rgb = serve.decode_remote(*srv.server_address, clip, mode=serve.MODE_RGB)
 srv.shutdown()
 srv.server_close()
 assert [len(c) for c in rgb] == [32 * 16 * 3] * 3
+srv = serve.DecodeServer(("127.0.0.1", 0), device="cpu",
+                         batch_window_s=0.05, max_batch=2)
+threading.Thread(target=srv.serve_forever, daemon=True).start()
+yuv = serve.decode_remote(*srv.server_address, clip)
+batches = serve.fetch_metrics(*srv.server_address)["batches"]
+srv.shutdown()
+srv.server_close()
+assert yuv == frames and batches == 1
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "hvqm4_tpu"))
 assert loaded == ["hvqm4_tpu", "jax"], loaded   # only the blockers
@@ -267,8 +280,9 @@ print("ok", len(mods), len(frames), len(rgb))
 
 def test_port_never_imports_jax(tmp_path):
     """Every module of the port and `chip_smoke` import, and a clip
-    decodes through the session, the lock-step step and the server, with
-    both JAX and the JAX package blocked."""
+    decodes through the session, the lock-step step, the arena decoder
+    (pipelined, K=2) and the server, unbatched and batched, with both JAX
+    and the JAX package blocked."""
     clip = tmp_path / "c.h4m"
     clip.write_bytes(make_clip(SeqConfig(32, 16), ["IPB"], seed=77))
     env = dict(os.environ, PYTHONPATH=str(REPO))
