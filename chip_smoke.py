@@ -33,12 +33,32 @@ Phases, in order; any failure exits non-zero before the result line:
    card). `intra_synth_acc` and `inter_combine` must each launch 3 x the
    decode steps of the phase (dispatched steps x K), `intra_synth_noacc`
    never.
+5c. consumers: the same 8 streams through `data.FrameBatchLoader` and
+   `pipeline.VideoEmbedPipeline` on cuda, with the default ViT (224x224,
+   patch 16, dim 384, depth 6, 6 heads). The loader in decode order at full
+   size: every batch times 255, rounded, must equal the integer formula on
+   the oracle's frames of that step (the batched `yuv_to_rgb` behind the
+   arena is exact). At `image_size` 224: shape, range (1e-6 of float
+   slack above 1), and within 1e-6 of
+   `resize_bilinear` of the checked RGB. In display order: every display id
+   of every stream once and in order, each frame the checked one with that
+   id. The pipeline at `plan_ahead` 1 and 2, its consumer synchronising only
+   at the end: (8, 384) finite embeddings a step, every stream valid, each
+   within max abs 2e-2 and cosine 0.9999 of the same model run one frame a
+   call on the checked RGB (a gate for gross errors). `yuv_to_rgb` must
+   launch once a step (not once a frame), `intra_synth_acc` and
+   `inter_combine` 3 x the decode steps, `intra_synth_noacc` never; the
+   variant `yuv_to_rgb` took is printed. Then, uncounted, the command line
+   on the card: `decode --start-time` inside ref640's second block equals
+   `--start-block 1` and the oracle's frames, and `stats` gives its four
+   keys.
 6. serve: the port's `DecodeServer` on cuda, on a thread, answers both
    clips over TCP in YUV (FNV-1a == `oracle --hash`), RGB (== the integer
    formula on the oracle's frames) and EMBED (28 finite 384-vectors; two
    frames a clip against the port's CPU ViT with the same weights), then
    four mixed requests over one `MuxClient` connection (== the single-shot
-   replies), then metrics. Then a batching server (`batch_window_s`
+   replies), then metrics; `cli remote` fetches one clip in YUV (FNV-1a ==
+   `oracle --hash`) and `--metrics` from it. Then a batching server (`batch_window_s`
    0.25, `max_batch` 4) answers four concurrent requests: both clips in
    YUV (== `oracle --hash`) and RGB (== the integer formula), and a
    truncated clip that must fail alone; fewer batches than batched
@@ -58,10 +78,15 @@ Phases, in order; any failure exits non-zero before the result line:
    the packed replay's device-phase fps with its plans already on the
    card, bytes uploaded per frame on both paths, the device's busy share
    over a pipelined window, and the profiler's launches per step split
-   into the port's kernels, copies and the rest.
+   into the port's kernels, copies and the rest. Then the consumers:
+   end-to-end fps of the pipeline and of the loader at 224 beside the
+   arena's, the ViT's ms a frame at batch 1 and at batch 8 on the same
+   images, RGB + resize of one step alone, the host synchronisations that
+   an arena step and an embed make unasked, and the device's busy share
+   over one pipeline run.
 
-`launches` in the kernels line is the sum of the counted phases 4-5, 5b
-and 6; its times are the luma grid's (480x640 for `yuv_to_rgb`) at N=8.
+`launches` in the kernels line is the sum of the counted phases 4-5, 5b,
+5c and 6; its times are the luma grid's (480x640 for `yuv_to_rgb`) at N=8.
 Before
 the last lines the script fails if any module of JAX or of `hvqm4_tpu` was
 imported. The line before the last is a JSON object of the kernels; the
@@ -71,7 +96,11 @@ last line is
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import copy
+import functools
+import io
 import json
 import statistics
 import subprocess
@@ -675,8 +704,9 @@ def phase_times(dev, cfg, clips: dict, tag: str) -> dict:
     device_profile(lambda: run_lockstep(cfg, steps, dev),
                    f"lock-step device steps ({frames} frames)", tag)
     del steps
-    arena_times(cfg, clips, dev, tag, frames / host_s, frames / dev_s,
-                lock_bytes / frames)
+    arena_fps = arena_times(cfg, clips, dev, tag, frames / host_s,
+                            frames / dev_s, lock_bytes / frames)
+    consumer_times(cfg, clips, dev, tag, arena_fps)
     retail = clips["retail640.h4m"]
     device_profile(lambda: sum(1 for _ in DecoderSession(
         cfg, dev).decode_clip(retail)), "session retail640.h4m (28 frames)",
@@ -689,11 +719,12 @@ STAT_KEYS = ("plan_s", "assemble_s", "stage_s", "upload_s", "dispatch_s",
 
 
 def arena_times(cfg, clips: dict, dev, tag: str, lock_host_fps: float,
-                lock_dev_fps: float, lock_bytes: float) -> None:
+                lock_dev_fps: float, lock_bytes: float) -> float:
     """Phase 7, the arena path beside the lock-step one: pipelined fps at
     K = 1 and 2 (second of two runs; decoder set-up timed apart), the
     packed replay's device phase, bytes uploaded per frame, the device's
-    busy share over a pipelined window and the launches per step."""
+    busy share over a pipelined window and the launches per step. Returns
+    the pipelined fps at K = 1."""
     import torch
 
     from hvqm4_tpu_torch.parallel.multistream import MultiStreamDecoder
@@ -710,9 +741,12 @@ def arena_times(cfg, clips: dict, dev, tag: str, lock_host_fps: float,
         torch.cuda.synchronize()
         return ms, n, time.perf_counter() - t0, setup
 
+    fps_k1 = 0.0
     for k in (1, 2):
         pipelined(k)  # warm: allocator, pinned pages, first launches
         ms, n, wall, setup = pipelined(k)
+        if k == 1:
+            fps_k1 = n / wall
         split = ", ".join(f"{key[:-2]} {1e3 * ms.stats[key] / n:.4f}"
                           for key in STAT_KEYS)
         print(f"time arena pipelined K={k} {N_STREAMS} streams: {n} frames "
@@ -776,8 +810,115 @@ def arena_times(cfg, clips: dict, dev, tag: str, lock_host_fps: float,
     device_profile(lambda: sum(1 for _ in ms.run_pipelined()),
                    f"arena pipelined K=1 ({n} frames, decoder built before "
                    f"the window)", tag)
+    return fps_k1
 
 
+def consumer_times(cfg, clips: dict, dev, tag: str, arena_fps: float) -> None:
+    """Phase 7, the consumer paths beside the arena: end-to-end fps of the
+    pipeline and of the loader at 224 (second of two runs, the consumer
+    synchronising once at the end; set-up apart), the ViT's time per frame
+    at batch 1 and at batch 8 on the same images, and the device's busy
+    share over one pipeline run."""
+    import torch
+
+    from hvqm4_tpu_torch.data import FrameBatchLoader
+    from hvqm4_tpu_torch.ops.csc import frame_to_rgb, resize_bilinear
+    from hvqm4_tpu_torch.parallel.multistream import MultiStreamDecoder
+    from hvqm4_tpu_torch.pipeline import VideoEmbedPipeline, embed_frames
+
+    streams = [clips[n] for n in STREAM_CLIPS]
+
+    def pipeline_run():
+        pipe = VideoEmbedPipeline(cfg, streams, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = sum(sum(valid) for _e, _m, valid in pipe.run())
+        torch.cuda.synchronize()
+        return pipe, n, time.perf_counter() - t0
+
+    def loader_run():
+        loader = FrameBatchLoader(cfg, streams, image_size=224, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = sum(sum(valid) for _rgb, valid in loader)
+        torch.cuda.synchronize()
+        return loader, n, time.perf_counter() - t0
+
+    for what, run in (("pipeline (decode, RGB, resize, ViT at batch "
+                       f"{N_STREAMS})", pipeline_run),
+                      ("loader at 224 (decode, RGB, resize)", loader_run)):
+        run()  # warm
+        obj, n, wall = run()
+        st = obj.decoder.stats
+        split = ", ".join(f"{key[:-2]} {1e3 * st[key] / n:.4f}"
+                          for key in STAT_KEYS)
+        print(f"time {what} {N_STREAMS} streams: {n} frames in {wall:.4f} s "
+              f"= {n / wall:.1f} fps end to end, {1e3 * wall / st['steps']:.3f}"
+              f" ms a step; the arena alone {arena_fps:.1f} fps in this run; "
+              f"decoder per frame ms: {split} [{tag}]")
+
+    pipe = VideoEmbedPipeline(cfg, streams, device=dev)
+    model = pipe.model
+    imgs = torch.rand((N_STREAMS, 224, 224, 3),
+                      generator=torch.Generator().manual_seed(1)).to(dev)
+
+    def batched():
+        return model(imgs)
+
+    def singly():
+        return [model(imgs[i:i + 1]) for i in range(N_STREAMS)]
+
+    with torch.no_grad():
+        # batch 1, batch 8, batch 8, batch 1: the halves bracket drift
+        s1, b1, b2, s2 = (cuda_ms(singly), cuda_ms(batched), cuda_ms(batched),
+                          cuda_ms(singly))
+        one, many = min(s1, s2) / N_STREAMS, min(b1, b2) / N_STREAMS
+        one_us, many_us = device_us_per_call(singly), device_us_per_call(batched)
+    per = lambda us: fmt_us(None if us is None else us / N_STREAMS)  # noqa: E731
+    print(f"time vit batch 1 vs batch {N_STREAMS} on the same {N_STREAMS} "
+          f"images (224x224, dim {model.cfg.dim}, depth {model.cfg.depth}): "
+          f"{one:.4f} ms a frame one frame a call, {many:.4f} ms a frame at "
+          f"batch {N_STREAMS} ({one / many:.1f}x); device only {per(one_us)} "
+          f"and {per(many_us)} a frame [{tag}]")
+    # what the consumer adds to an arena step, alone: RGB + resize of one
+    # step's frames, and whether anything on the path makes the host wait
+    ms = MultiStreamDecoder(cfg, streams, dev)
+    ms.step()
+    step_syncs = implicit_syncs(ms.step)
+    frames = ms.step()[0]
+    to_rgb = lambda: resize_bilinear(frame_to_rgb(frames, 2, 2), 224, 224)  # noqa: E731
+    embed_syncs = implicit_syncs(
+        lambda: embed_frames(model, frames, cfg.h_samp, cfg.v_samp))
+    print(f"time csc+resize batch {N_STREAMS} 480x640 -> 224x224: "
+          f"{cuda_ms(to_rgb):.4f} ms a step; device only "
+          f"{fmt_us(device_us_per_call(to_rgb))}; host synchronisations "
+          f"nobody asked for (torch's sync debug mode): {step_syncs} in one "
+          f"arena step, {embed_syncs} in one embed of {N_STREAMS} frames "
+          f"[{tag}]")
+    device_profile(lambda: sum(1 for _ in pipe.run()),
+                   f"pipeline ({N_STREAMS} streams, 224 frames, built before "
+                   f"the window)", tag)
+
+
+def implicit_syncs(fn) -> int:
+    """The host synchronisations one call of `fn` makes without being asked
+    to: torch's sync debug mode warns at each."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message).lower() for w in caught)
+
+
+@functools.lru_cache(maxsize=None)
 def oracle_frames(oracle: Path, name: str, cfg) -> tuple:
     """The oracle's decoded frames of a clip (planar YUV bytes each) and
     its per-frame `--hash` lines."""
@@ -830,6 +971,208 @@ def cpu_embedding(model, frame: bytes, cfg, vcfg) -> np.ndarray:
         img = resize_bilinear(frame_to_rgb(planes, cfg.h_samp, cfg.v_samp),
                               vcfg.image_size, vcfg.image_size)
         return model(img[None])[0].numpy()
+
+
+def within_vit_gate(got: np.ndarray, want: np.ndarray) -> tuple:
+    """(max abs difference, least cosine) of two (…, dim) embeddings."""
+    d = float(np.abs(got - want).max())
+    cos = (got * want).sum(-1) / (np.linalg.norm(got, axis=-1)
+                                  * np.linalg.norm(want, axis=-1))
+    return d, float(cos.min())
+
+
+def phase_consumers(dev, cfg, clips: dict, oracle: Path,
+                    kernels: list) -> dict:
+    """Phase 5c: `FrameBatchLoader` and `VideoEmbedPipeline` on the card at
+    8 streams, every output against the oracle's frames; returns the launch
+    counts of the class runs. The command-line checks after them are not
+    counted."""
+    import torch
+
+    from hvqm4_tpu_torch import cli
+    from hvqm4_tpu_torch.container import Demuxer
+    from hvqm4_tpu_torch.data import FrameBatchLoader
+    from hvqm4_tpu_torch.kernels import csc as csc_kernel
+    from hvqm4_tpu_torch.native import NativePlanner
+    from hvqm4_tpu_torch.ops.csc import resize_bilinear
+    from hvqm4_tpu_torch.pipeline import VideoEmbedPipeline
+
+    streams = [clips[n] for n in STREAM_CLIPS]
+    # the checked RGB: the integer formula on the oracle's frames, per clip
+    # in decode order, on the card; and each clip's display ids
+    checked, disp_ids, ftypes = {}, {}, {}
+    for name, data in clips.items():
+        frames, _hashes = oracle_frames(oracle, name, cfg)
+        checked[name] = torch.from_numpy(np.stack([
+            np.frombuffer(ref_rgb(f, cfg), np.uint8).reshape(
+                cfg.height, cfg.width, 3) for f in frames])).to(dev)
+        planner = NativePlanner(cfg)
+        recs = list(Demuxer(data).video_records())
+        disp_ids[name] = [planner.plan_frame(r.frame_char, r.payload)
+                          .display_id for r in recs]
+        ftypes[name] = "".join(r.frame_char for r in recs)
+    steps = len(checked[CLIPS[0]])
+    print(f"consumers: {N_STREAMS} streams of {steps} frames; B frames: "
+          + ", ".join(f"{n} {ftypes[n].count('B')}" for n in CLIPS))
+    if not any("B" in t for t in ftypes.values()):
+        fail("consumers: no clip holds B frames, so the display-order "
+             "hold-back would not be exercised")
+
+    def want_batch(t: int):
+        return torch.stack([checked[n][t] for n in STREAM_CLIPS])
+
+    def as_u8(rgb):
+        return (rgb * 255.0).round().to(torch.uint8)
+
+    taken = collections.Counter()
+    vector_ok = csc_kernel._vector_ok
+
+    def spy(*args):
+        ok = vector_ok(*args)
+        taken["vector" if ok else "general"] += 1
+        return ok
+
+    csc_kernel._vector_ok = spy  # which variant each launch takes
+    try:
+        # loader, decode order, full size
+        n_steps = 0
+        for t, (rgb, valid) in enumerate(FrameBatchLoader(
+                cfg, streams, device=dev, plan_ahead=2)):
+            if valid != [True] * N_STREAMS or rgb.dtype != torch.float32 \
+                    or tuple(rgb.shape) != (N_STREAMS, 480, 640, 3):
+                fail(f"loader step {t}: valid {valid}, {rgb.dtype} "
+                     f"{tuple(rgb.shape)}")
+            if not torch.equal(as_u8(rgb), want_batch(t)):
+                fail(f"loader step {t}: batch x 255 differs from the integer "
+                     f"formula on the oracle's frames")
+            n_steps += 1
+        if n_steps != steps:
+            fail(f"loader: {n_steps} steps, want {steps}")
+        print(f"loader on {dev}, decode order, full size: {n_steps} batches "
+              f"of {N_STREAMS}x480x640x3, x255 == the integer formula on the "
+              f"oracle's frames on every stream")
+
+        # loader, decode order, resized
+        worst = 0.0
+        for t, (rgb, valid) in enumerate(FrameBatchLoader(
+                cfg, streams, image_size=224, device=dev)):
+            if valid != [True] * N_STREAMS or \
+                    tuple(rgb.shape) != (N_STREAMS, 224, 224, 3):
+                fail(f"loader 224 step {t}: valid {valid}, "
+                     f"{tuple(rgb.shape)}")
+            # the resize's weights sum to 1 within float rounding, so a
+            # saturated patch may come out a few 1e-7 above 1, as from
+            # `jax.image.resize`
+            if float(rgb.min()) < 0.0 or float(rgb.max()) > 1.0 + 1e-6:
+                fail(f"loader 224 step {t}: values outside [0, 1 + 1e-6]")
+            worst = max(worst, float((rgb - resize_bilinear(
+                want_batch(t), 224, 224)).abs().max()))
+        if worst > 1e-6:
+            fail(f"loader 224: max abs {worst} > 1e-6 against "
+                 f"resize_bilinear of the checked RGB")
+        print(f"loader on {dev}, image_size 224: in [0, 1 + 1e-6], max abs {worst:.1e}"
+              f" against resize_bilinear of the checked RGB (bound 1e-6)")
+
+        # loader, display order: the n-th frame a stream delivers is the
+        # checked frame whose display id is n
+        seen = [0] * N_STREAMS
+        items = 0
+        for ready in FrameBatchLoader(cfg, streams, device=dev,
+                                      display_order=True, plan_ahead=2):
+            if not ready:
+                fail("loader display order: an empty item")
+            items += 1
+            for si, frame in ready:
+                name = STREAM_CLIPS[si]
+                if seen[si] not in disp_ids[name]:
+                    fail(f"loader display order: stream {si} delivered more "
+                         f"frames than it has")
+                t = disp_ids[name].index(seen[si])
+                if not torch.equal(as_u8(frame), checked[name][t]):
+                    fail(f"loader display order: stream {si} frame "
+                         f"{seen[si]} is not display id {seen[si]}")
+                seen[si] += 1
+        if seen != [steps] * N_STREAMS:
+            fail(f"loader display order: frames per stream {seen}, want "
+                 f"{steps} each")
+        print(f"loader on {dev}, display order: {sum(seen)} frames in {items} "
+              f"items, every display id of every stream once and in order, "
+              f"each == the checked frame with that id")
+
+        # pipeline: the consumer never waits for the card inside the loop
+        runs = {}
+        for ahead in (1, 2):
+            pipe = VideoEmbedPipeline(cfg, streams, device=dev,
+                                      plan_ahead=ahead)
+            embs, valids = [], []
+            for emb, _metas, valid in pipe.run():
+                embs.append(emb)
+                valids.append(valid)
+            torch.cuda.synchronize()
+            if valids != [[True] * N_STREAMS] * steps:
+                fail(f"pipeline plan_ahead={ahead}: valid differs from the "
+                     f"arena phase's ({len(valids)} steps)")
+            got = torch.stack(embs)
+            if tuple(got.shape) != (steps, N_STREAMS, pipe.vit_cfg.dim) or \
+                    got.dtype != torch.float32 or \
+                    not bool(torch.isfinite(got).all()):
+                fail(f"pipeline plan_ahead={ahead}: want finite f32 "
+                     f"({steps}, {N_STREAMS}, {pipe.vit_cfg.dim}), got "
+                     f"{got.dtype} {tuple(got.shape)}")
+            runs[ahead] = got.cpu().numpy()
+        with torch.no_grad():  # the same model, one frame a call
+            single = {n: torch.cat([pipe.model(resize_bilinear(
+                checked[n][t], 224, 224)[None]) for t in range(steps)])
+                .cpu().numpy() for n in CLIPS}
+        want = np.stack([single[n] for n in STREAM_CLIPS], axis=1)
+        for ahead, got in runs.items():
+            d, cos = within_vit_gate(got, want)
+            print(f"pipeline on {dev}, plan_ahead={ahead}: {steps} steps of "
+                  f"({N_STREAMS}, {pipe.vit_cfg.dim}) finite embeddings, "
+                  f"batch {N_STREAMS} vs one frame a call on the checked RGB: "
+                  f"max abs {d:.3e}, least cosine {cos:.7f}")
+            # a gate for gross errors (wrong frame, resize or weights): the
+            # batched matmuls tile differently from batch 1's
+            if not (d <= 2e-2 and cos >= 0.9999):
+                fail(f"pipeline plan_ahead={ahead}: max abs {d} > 2e-2 or "
+                     f"cosine {cos} < 0.9999 against one frame a call")
+        print(f"pipeline: plan_ahead 1 and 2 give "
+              f"{'the same bits' if np.array_equal(runs[1], runs[2]) else 'different bits'}")
+        torch.cuda.synchronize()
+    finally:
+        csc_kernel._vector_ok = vector_ok
+    launches = {k.symbol: k.launches for k in kernels}
+    print(f"consumers: yuv_to_rgb variants taken: {dict(taken)}")
+
+    # the command line on the card (after the counts were read)
+    SCRATCH.mkdir(parents=True, exist_ok=True)
+    ref = REPO / "testdata" / CLIPS[0]
+    demux = Demuxer(clips[CLIPS[0]])
+    first = demux.block_video_counts()[0]
+    sec = (first + 2.5) * demux.info.usec_per_frame / 1e6
+    outs = [SCRATCH / "start_time.yuv", SCRATCH / "start_block.yuv"]
+    with contextlib.redirect_stderr(io.StringIO()):
+        rcs = [cli.main(["decode", str(ref), str(outs[0]), "--start-time",
+                         f"{sec:.6f}"]),
+               cli.main(["decode", str(ref), str(outs[1]), "--start-block",
+                         "1"])]
+    frames, _hashes = oracle_frames(oracle, CLIPS[0], cfg)
+    if rcs != [0, 0] or outs[0].read_bytes() != outs[1].read_bytes() or \
+            outs[0].read_bytes() != b"".join(frames[first:]):
+        fail(f"cli decode --start-time {sec:.6f}: differs from --start-block "
+             f"1 or from the oracle's frames {first}.. (exit codes {rcs})")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["stats", str(REPO / "testdata" / CLIPS[1])])
+    stats = json.loads(buf.getvalue())
+    if rc != 0 or sorted(stats) != ["block_classes", "frames", "modes",
+                                    "video_payload_bytes"]:
+        fail(f"cli stats {CLIPS[1]}: exit {rc}, keys {sorted(stats)}")
+    print(f"cli on {dev}: decode --start-time {sec:.6f} == --start-block 1 "
+          f"== the oracle's frames {first}..{len(frames) - 1} of {CLIPS[0]}; "
+          f"stats {CLIPS[1]}: frames {stats['frames']}, block classes "
+          f"{stats['block_classes']}")
+    return launches
 
 
 def phase_serve(dev, cfg, clips: dict, oracle: Path, kernels: list,
@@ -903,6 +1246,7 @@ def phase_serve(dev, cfg, clips: dict, oracle: Path, kernels: list,
                  f"{metrics['errors']}, want {want_modes} and 0")
         print(f"serve mux: {len(jobs)} mixed requests over one connection "
               f"== single-shot replies; metrics by_mode {metrics['by_mode']}")
+        cli_remote(host, port, oracle, cfg)
         batched_serve(dev, clips, replies, tag)
         torch.cuda.synchronize()
         launches = {k.symbol: k.launches for k in kernels}
@@ -941,6 +1285,35 @@ def phase_serve(dev, cfg, clips: dict, oracle: Path, kernels: list,
         srv.server_close()
         thread.join(timeout=30)
     return launches
+
+
+def cli_remote(host: str, port: int, oracle: Path, cfg) -> None:
+    """`cli remote` against the running server: one clip in YUV, hashed
+    against `oracle --hash`, and the metrics snapshot."""
+    from hvqm4_tpu_torch import cli
+    from hvqm4_tpu_torch.utils.hashing import fnv1a
+
+    name = CLIPS[1]
+    _frames, hashes = oracle_frames(oracle, name, cfg)
+    out = SCRATCH / "remote.yuv"
+    with contextlib.redirect_stderr(io.StringIO()):
+        rc = cli.main(["remote", f"{host}:{port}",
+                       str(REPO / "testdata" / name), str(out)])
+    data = out.read_bytes() if rc == 0 else b""
+    fb = cfg.frame_bytes
+    got = [f"{fnv1a(data[i:i + fb]):08x}" for i in range(0, len(data), fb)]
+    if rc != 0 or got != hashes:
+        fail(f"cli remote {name}: exit {rc}, {len(got)} frames; FNV-1a "
+             f"differs from oracle --hash")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["remote", f"{host}:{port}", "--metrics"])
+    metrics = json.loads(buf.getvalue())
+    if rc != 0 or metrics["requests_total"] < 1 or metrics["errors"] != 0:
+        fail(f"cli remote --metrics: exit {rc}, {metrics}")
+    print(f"cli remote {name}: {len(got)} frames, FNV-1a == oracle --hash; "
+          f"--metrics: requests_total {metrics['requests_total']}, by_mode "
+          f"{metrics['by_mode']}")
 
 
 def batched_serve(dev, clips: dict, replies: dict, tag: str) -> None:
@@ -1132,6 +1505,22 @@ def main() -> int:
             fail(f"{sym} launched {arena_launches[sym]} times on the arena "
                  f"path, want {n}")
 
+    # phase 5c: the consumer paths on the arena decoder, counted
+    for k in kernels:
+        k.launches = 0
+    consumer_launches = phase_consumers(dev, cfg, clips, oracle, kernels)
+    steps = len(want[CLIPS[0]])
+    runs = 5  # the loader three ways, the pipeline at plan_ahead 1 and 2
+    print(f"launches on the consumer paths (phase 5c, {runs} runs of {steps} "
+          f"steps): {consumer_launches}")
+    for sym, n in (("hvqm4_yuv_to_rgb", runs * steps),
+                   ("hvqm4_intra_synth_acc", 3 * runs * steps),
+                   ("hvqm4_inter_combine", 3 * runs * steps),
+                   ("hvqm4_intra_synth_noacc", 0)):
+        if consumer_launches[sym] != n:
+            fail(f"{sym} launched {consumer_launches[sym]} times on the "
+                 f"consumer paths, want {n}")
+
     # phase 6: the decode service, counted
     for k in kernels:
         k.launches = 0
@@ -1159,6 +1548,7 @@ def main() -> int:
                      "replaces": k.replaces,
                      "launches": (decode_launches[k.symbol]
                                   + arena_launches[k.symbol]
+                                  + consumer_launches[k.symbol]
                                   + serve_launches[k.symbol]),
                      "max_abs_err": err[name], "ms": t["ms"],
                      "plain_ms": t["plain_ms"],

@@ -8,6 +8,7 @@ its original by `tests/test_torch_host.py`:
 - `native`: the C++ entropy planner (`_entropy.cc`, byte for byte), built
   with g++ into `build/` and bound with ctypes;
 - `refdec`: the NumPy golden decoder (the third party of `cli verify`);
+- `audio`: IMA-ADPCM audio records → PCM, `.wav`;
 - `utils.profiling`: `StageTimer`.
 
 The device half is rewritten here:
@@ -26,8 +27,13 @@ The device half is rewritten here:
   two uploads a step, plain-PyTorch unpack, K fused lock-step decodes,
   planning pipelined on worker threads), GOP-parallel decode of one clip,
   and the per-field lock-step step both share;
-- `session`, `cli`: the frame-at-a-time API and command line
-  (`decode --gop-parallel` and `verify --batched` on the arena decoder);
+- `pipeline`, `data`: the consumer faces on the arena decoder:
+  `VideoEmbedPipeline` (streams → ViT embeddings, the ViT at batch N) and
+  `FrameBatchLoader` (streams → RGB batches, in decode or display order);
+- `utils.stats`: per-clip mode histograms over the C++ planner;
+- `session`, `cli`: the frame-at-a-time API and command line (`info`,
+  `decode`, `hash`, `verify`, `audio`, `stats`, `remote`;
+  `decode --gop-parallel` and `verify --batched` on the arena decoder);
 - `serve`: the decode service (YUV, RGB and ViT-embedding requests, with
   continuous batching on the arena decoder), its wire protocol and its
   clients.
@@ -47,4 +53,12 @@ def __getattr__(name):  # lazy, like hvqm4_tpu: importing the package is free
         from .parallel import multistream
 
         return getattr(multistream, name)
+    if name == "VideoEmbedPipeline":
+        from . import pipeline
+
+        return pipeline.VideoEmbedPipeline
+    if name == "FrameBatchLoader":
+        from . import data
+
+        return data.FrameBatchLoader
     raise AttributeError(name)

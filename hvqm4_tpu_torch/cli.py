@@ -2,25 +2,35 @@
 
     python -m hvqm4_tpu_torch.cli info    clip.h4m
     python -m hvqm4_tpu_torch.cli decode  clip.h4m [out.yuv] [--device cuda]
-                                          [--start-block K] [--frames N]
-                                          [--display-order] [--profile]
-                                          [--ppm DIR] [--y4m]
+                                          [--start-block K | --start-time SEC]
+                                          [--frames N] [--display-order]
+                                          [--profile] [--ppm DIR] [--y4m]
     python -m hvqm4_tpu_torch.cli decode  clip.h4m [out.yuv] --gop-parallel
     python -m hvqm4_tpu_torch.cli hash    clip.h4m [--device cuda]
     python -m hvqm4_tpu_torch.cli verify  clip.h4m [--device cuda] [--batched]
+    python -m hvqm4_tpu_torch.cli audio   clip.h4m out.wav
+    python -m hvqm4_tpu_torch.cli stats   clip.h4m      # mode histograms
+    python -m hvqm4_tpu_torch.cli remote  HOST:PORT clip.h4m [out]
+                                          [--mode yuv|rgb|embed] [--token T]
+                                          [--timeout SEC]
+    python -m hvqm4_tpu_torch.cli remote  HOST:PORT --metrics [--prometheus]
 
 `decode --gop-parallel` decodes the clip's GOP blocks as parallel streams
 of the arena `MultiStreamDecoder`; `verify --batched` checks that decoder
 on one stream through on-device checksums against `oracle --csum`.
+`remote` is the client of the decode service (`python -m
+hvqm4_tpu_torch.serve`).
 
 `--device` defaults to `cuda`. Without a card the command fails with a
 one-line error; it never falls back to the CPU. `--device cpu` runs the
-plain PyTorch path on purpose.
+plain PyTorch path on purpose. `info`, `audio`, `stats` and `remote` use no
+device and take no `--device`.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import subprocess
 import sys
@@ -31,12 +41,14 @@ from pathlib import Path
 import torch
 
 from . import refdec
+from .audio import decode_record, records_to_wav
 from .container import ContainerError, Demuxer
 from .native import PlannerError
 from .ops.csc import frame_to_rgb
 from .parallel.multistream import MultiStreamDecoder, decode_clip_gop_parallel
 from .session import DecoderSession
 from .utils.hashing import batch_csum, fnv1a, frame_csum, oracle_csums
+from .utils.stats import clip_stats
 
 PROG = "hvqm4_tpu_torch"
 _ORACLE = Path(__file__).resolve().parent.parent / "oracle" / "hvqm4_oracle"
@@ -67,6 +79,8 @@ def cmd_info(args) -> int:
           f"audio_frames={i.audio_frames}")
     fps = 1e6 / i.usec_per_frame if i.usec_per_frame else 0
     print(f"usec_per_frame={i.usec_per_frame} ({fps:.2f} fps)")
+    if i.audio_channels:
+        print(f"audio: {i.audio_channels}ch {i.audio_sample_rate} Hz IMA-ADPCM")
     return 0
 
 
@@ -88,6 +102,12 @@ def cmd_decode(args) -> int:
     data = Path(args.clip).read_bytes()
     demux = Demuxer(data)
     cfg = demux.info.cfg
+    if args.start_time is not None:
+        if args.start_block:
+            print(f"{PROG}: error: --start-time and --start-block are "
+                  f"mutually exclusive", file=sys.stderr)
+            return 1
+        args.start_block = demux.block_for_time(args.start_time)
     if args.gop_parallel:
         return _decode_gop_parallel(args, data, dev)
     sess = DecoderSession(cfg, dev, profile=args.profile)
@@ -130,6 +150,7 @@ def _decode_gop_parallel(args, data: bytes, dev) -> int:
     are refused."""
     for flag, name in ((args.ppm, "--ppm"),
                        (args.start_block, "--start-block"),
+                       (args.start_time is not None, "--start-time"),
                        (args.display_order, "--display-order"),
                        (args.y4m, "--y4m"),
                        (args.frames is not None, "--frames"),
@@ -216,6 +237,77 @@ def _verify_batched(cfg, data: bytes, clip_path: Path, dev) -> int:
     return 0 if ok else 1
 
 
+def cmd_audio(args) -> int:
+    d = Demuxer(Path(args.clip).read_bytes())
+    ch = d.info.audio_channels
+    if not ch:
+        print("no audio in clip", file=sys.stderr)
+        return 1
+    recs = [decode_record(r.payload, ch) for r in d.audio_records()]
+    records_to_wav(recs, d.info.audio_sample_rate, args.output)
+    print(f"wrote {args.output}", file=sys.stderr)
+    return 0
+
+
+def cmd_stats(args) -> int:
+    print(clip_stats(Path(args.clip).read_bytes()))
+    return 0
+
+
+def cmd_remote(args) -> int:
+    """Client for the decode service (`python -m hvqm4_tpu_torch.serve`)."""
+    from . import serve  # it imports this module
+
+    host, _, port_s = args.server.rpartition(":")
+    if not host or not port_s.isdigit() or not 1 <= int(port_s) <= 65535:
+        print(f"{PROG}: error: server must be HOST:PORT (port 1-65535)",
+              file=sys.stderr)
+        return 1
+    port = int(port_s)
+    try:
+        if args.metrics:
+            if args.clip or args.output:
+                print(f"{PROG}: error: --metrics takes no clip/output",
+                      file=sys.stderr)
+                return 1
+            if args.prometheus:
+                (raw,) = serve.decode_remote(host, port, b"",
+                                             mode=serve.MODE_METRICS_PROM,
+                                             token=args.token)
+                sys.stdout.write(raw.decode())
+            else:
+                print(json.dumps(serve.fetch_metrics(host, port,
+                                                     token=args.token),
+                                 indent=2))
+            return 0
+        if not args.clip:
+            print(f"{PROG}: error: clip required unless --metrics",
+                  file=sys.stderr)
+            return 1
+        mode = {"yuv": serve.MODE_YUV, "rgb": serve.MODE_RGB,
+                "embed": serve.MODE_EMBED}[args.mode]
+        chunks = serve.decode_remote(host, port,
+                                     Path(args.clip).read_bytes(),
+                                     mode=mode, timeout=args.timeout,
+                                     token=args.token)
+    except (serve.BusyError, RuntimeError, PermissionError,
+            ConnectionError) as e:
+        print(f"{PROG}: error: {e}", file=sys.stderr)
+        return 1
+    if args.output:
+        with open(args.output, "wb") as f:
+            for c in chunks:
+                f.write(c)
+    what = "embeddings" if args.mode == "embed" else "frames"
+    print(f"received {len(chunks)} {what} "
+          f"({sum(map(len, chunks))} bytes)", file=sys.stderr)
+    return 0
+
+
+# subcommands that use no device and take no --device
+_HOST_ONLY = (cmd_info, cmd_audio, cmd_stats, cmd_remote)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog=PROG)
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -228,6 +320,8 @@ def main(argv=None) -> int:
     p.add_argument("clip")
     p.add_argument("output", nargs="?")
     p.add_argument("--start-block", type=int, default=0)
+    p.add_argument("--start-time", type=float, metavar="SEC",
+                   help="seek to the GOP block containing this time")
     p.add_argument("--frames", type=int, metavar="N",
                    help="stop after N frames")
     p.add_argument("--display-order", action="store_true",
@@ -253,8 +347,30 @@ def main(argv=None) -> int:
                         "checksums (4 bytes a frame leave the device)")
     p.set_defaults(fn=cmd_verify)
 
+    p = sub.add_parser("audio")
+    p.add_argument("clip")
+    p.add_argument("output")
+    p.set_defaults(fn=cmd_audio)
+
+    p = sub.add_parser("stats")
+    p.add_argument("clip")
+    p.set_defaults(fn=cmd_stats)
+
+    p = sub.add_parser("remote")
+    p.add_argument("server", help="decode-service address HOST:PORT")
+    p.add_argument("clip", nargs="?")
+    p.add_argument("output", nargs="?")
+    p.add_argument("--mode", default="yuv", choices=["yuv", "rgb", "embed"])
+    p.add_argument("--token", default="", help="shared auth token")
+    p.add_argument("--timeout", type=float, default=600.0)
+    p.add_argument("--metrics", action="store_true",
+                   help="fetch the server metrics snapshot instead")
+    p.add_argument("--prometheus", action="store_true",
+                   help="with --metrics: Prometheus text format")
+    p.set_defaults(fn=cmd_remote)
+
     for p in sub.choices.values():
-        if p.get_default("fn") is not cmd_info:
+        if p.get_default("fn") not in _HOST_ONLY:
             p.add_argument("--device", default="cuda",
                            help="torch device (default: cuda)")
 
@@ -262,7 +378,25 @@ def main(argv=None) -> int:
     try:
         return args.fn(args)
     # user-input and environment errors print one line, not a traceback
+    except BrokenPipeError:
+        # the downstream pipe closed early (`... | head`): die silently, as
+        # Unix tools do; devnull over stdout so the interpreter's flush at
+        # shutdown cannot raise again
+        os.dup2(os.open(os.devnull, os.O_WRONLY), sys.stdout.fileno())
+        return 141  # 128 + SIGPIPE, as for a process the shell killed
     except (DeviceError, ContainerError, PlannerError, OSError) as e:
+        print(f"{PROG}: error: {e}", file=sys.stderr)
+        return 1
+    except ValueError as e:
+        # torch and numpy raise ValueError on internal shape bugs too: only
+        # one raised by this package's own code gets the one-liner, anything
+        # else keeps its traceback
+        tb = e.__traceback__
+        while tb is not None and tb.tb_next is not None:
+            tb = tb.tb_next
+        mod = tb.tb_frame.f_globals.get("__name__", "") if tb else ""
+        if not mod.startswith("hvqm4_tpu_torch"):
+            raise
         print(f"{PROG}: error: {e}", file=sys.stderr)
         return 1
 

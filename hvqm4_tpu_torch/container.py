@@ -139,6 +139,31 @@ class Demuxer:
         if off != end:
             raise ContainerError("trailing bytes in block")
 
+    def block_video_counts(self) -> list[int]:
+        """Video frames per block, read from the block headers alone."""
+        return [struct.unpack_from(">IHH", self.data, off)[2]
+                for off in self.block_offsets]
+
+    def block_for_time(self, seconds: float) -> int:
+        """Index of the GOP block whose display span contains `seconds`.
+
+        Frames are displayed every `usec_per_frame` and each block's frames
+        are display-contiguous (a GOP), so the mapping is a cumulative-count
+        walk over the block headers. Clamped to the last block; negative
+        times are rejected.
+        """
+        if seconds < 0:
+            raise ContainerError("seek time must be non-negative")
+        if not self.info.usec_per_frame:
+            raise ContainerError("clip has no frame period")
+        target = int(seconds * 1_000_000) // self.info.usec_per_frame
+        seen = 0
+        for b, count in enumerate(self.block_video_counts()):
+            seen += count
+            if target < seen:
+                return b
+        return len(self.block_offsets) - 1
+
     def records(self):
         """All records of the file in decode order."""
         for b in range(len(self.block_offsets)):
@@ -147,4 +172,9 @@ class Demuxer:
     def video_records(self):
         for r in self.records():
             if r.media_type == MEDIA_VIDEO:
+                yield r
+
+    def audio_records(self):
+        for r in self.records():
+            if r.media_type == MEDIA_AUDIO:
                 yield r

@@ -57,7 +57,9 @@ def resize_bilinear(img, out_h: int, out_w: int):
     """u8 (…, H, W, C) → f32 (…, out_h, out_w, C) in [0, 1].
 
     `jax.image.resize(method="bilinear")` antialiases when it downsamples,
-    so this does too: without it, 480x640 → 224x224 differs by up to 0.56."""
+    so this does too: without it, 480x640 → 224x224 differs by up to 0.56.
+    The filter's weights sum to 1 within float rounding, so a saturated
+    patch may come out a few 1e-7 above 1, there as here."""
     *lead, h, w, c = img.shape
     f = img.to(torch.float32) / 255.0
     x = f.reshape(-1, h, w, c).permute(0, 3, 1, 2)

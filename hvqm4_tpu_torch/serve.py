@@ -69,8 +69,9 @@ import torch
 from .cli import DeviceError, _device
 from .container import Demuxer
 from .models.vit import ViTConfig, init_vit
-from .ops.csc import frame_to_rgb, resize_bilinear
+from .ops.csc import frame_to_rgb
 from .parallel.multistream import MultiStreamDecoder
+from .pipeline import embed_frames
 from .session import DecoderSession
 
 PROG = "hvqm4_tpu_torch.serve"
@@ -443,12 +444,10 @@ class DecodeServer(socketserver.ThreadingTCPServer):
                                         self.device))
         vcfg, model = self._vit
         out = []
-        with torch.inference_mode():
-            for planes in frames:
-                rgb = frame_to_rgb(planes, cfg.h_samp, cfg.v_samp)
-                img = resize_bilinear(rgb, vcfg.image_size, vcfg.image_size)
-                emb = model(img[None])
-                out.append(emb[0].cpu().numpy().astype("<f4").tobytes())
+        for planes in frames:      # one frame a call
+            emb = embed_frames(model, [p[None] for p in planes],
+                               cfg.h_samp, cfg.v_samp)
+            out.append(emb[0].cpu().numpy().astype("<f4").tobytes())
         return out
 
     def _checked_cfg(self, demux: Demuxer):

@@ -1,7 +1,8 @@
 """On the card: the CUDA kernels against their plain versions, the session
-and the arena decoder on `cuda` against the C oracle and the CPU, and the
+and the arena decoder on `cuda` against the C oracle and the CPU, the
 decode service on `cuda`, unbatched and batched, against the same service
-on the CPU.
+on the CPU, and the loader and the embedding pipeline on `cuda` against
+the same classes on the CPU.
 
 Every test here needs a CUDA card and skips without one. The file imports
 no JAX, so it also runs where JAX is not installed; tests/conftest.py
@@ -22,12 +23,15 @@ from chip_smoke import border_vectors, csc_planes, random_plan
 from hvqm4_tpu_torch import serve
 from hvqm4_tpu_torch.convert import plan_to_torch
 from hvqm4_tpu_torch.config import SeqConfig
+from hvqm4_tpu_torch.data import FrameBatchLoader
 from hvqm4_tpu_torch.kernels import _build
 from hvqm4_tpu_torch.kernels.csc import (YUV_TO_RGB, _vector_ok, yuv_to_rgb,
                                          yuv_to_rgb_plain)
 from hvqm4_tpu_torch.kernels.inter import inter_combine, inter_combine_plain
 from hvqm4_tpu_torch.kernels.intra import intra_synth, intra_synth_plain
+from hvqm4_tpu_torch.models.vit import ViTConfig
 from hvqm4_tpu_torch.parallel.multistream import MultiStreamDecoder
+from hvqm4_tpu_torch.pipeline import VideoEmbedPipeline
 from hvqm4_tpu_torch.session import DecoderSession
 from hvqm4_tpu_torch.utils.hashing import batch_csum, oracle_csums
 from tools.encoder import make_clip
@@ -351,3 +355,85 @@ def test_cuda_batched_serve_matches_cpu_batched_serve(cuda):
     gpu, cpu = replies
     assert gpu == cpu
     assert "poisoned" in gpu[3] and all(len(r) == 7 for r in gpu[:3])
+
+
+def _consumer_clips(cfg):
+    """Three streams with B frames, one shorter than the others."""
+    clips = [make_clip(cfg, ["IBBPBP", "IPP"], seed=s) for s in (13, 14)]
+    return clips + [make_clip(cfg, ["IBP"], seed=15)]
+
+
+def _assert_same_pixels(got, want):
+    """Full-size batches hold u8 / 255: the same pixel values exactly. The
+    floats themselves may differ in the last bit, because the card divides
+    by a scalar by multiplying with its reciprocal."""
+    assert torch.equal((got * 255.0).round(), (want * 255.0).round())
+    assert float((got - want).abs().max()) <= 1.2e-7
+
+
+# 128 wide takes the csc kernel's vector variant, 72 (8 mod 16) the general
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,h", [(128, 96), (72, 48)])
+@pytest.mark.parametrize("image_size", [None, 32])
+def test_cuda_loader_matches_cpu_loader(cuda, w, h, image_size):
+    """The loader on the card at plan_ahead 2, its consumer never waiting
+    for the card: RGB exact at full size, within 1e-5 resized, the same
+    `valid`; one `yuv_to_rgb` launch a step."""
+    cfg = SeqConfig(w, h)
+    clips = _consumer_clips(cfg)
+    before = YUV_TO_RGB.launches
+    gpu = list(FrameBatchLoader(cfg, clips, image_size, cuda, plan_ahead=2))
+    assert YUV_TO_RGB.launches - before == len(gpu) == 9
+    cpu = list(FrameBatchLoader(cfg, clips, image_size, "cpu", plan_ahead=2))
+    assert [v for _b, v in gpu] == [v for _b, v in cpu]
+    for (bg, _vg), (bc, valid) in zip(gpu, cpu):
+        assert bg.device.type == "cuda" and bg.dtype == torch.float32
+        live = [si for si, ok in enumerate(valid) if ok]
+        if image_size is None:
+            _assert_same_pixels(bg.cpu()[live], bc[live])
+        else:
+            assert float((bg.cpu()[live] - bc[live]).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_loader_display_order_matches_cpu(cuda):
+    cfg = SeqConfig(128, 96)
+    clips = _consumer_clips(cfg)
+    gpu = list(FrameBatchLoader(cfg, clips, device=cuda, display_order=True,
+                                plan_ahead=2))
+    cpu = list(FrameBatchLoader(cfg, clips, device="cpu", display_order=True))
+    assert [[si for si, _f in r] for r in gpu] \
+        == [[si for si, _f in r] for r in cpu]
+    for rg, rc in zip(gpu, cpu):
+        for (_si, fg), (_sj, fc) in zip(rg, rc):
+            _assert_same_pixels(fg.cpu(), fc)
+    assert sum(len(r) for r in gpu) == 9 + 9 + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pipelined", [True, False])
+def test_cuda_pipeline_matches_cpu_pipeline(cuda, pipelined):
+    """Embeddings on the card within the ViT's gate (max abs 2e-2, cosine
+    0.9999: bf16 products in another order) of the CPU's, from the same
+    weights; plan_ahead 2 and no synchronisation in the consumer."""
+    cfg = SeqConfig(128, 96)
+    vit = ViTConfig(image_size=64, patch_size=8, dim=128, depth=2, heads=4)
+    clips = _consumer_clips(cfg)
+    ref = VideoEmbedPipeline(cfg, clips, vit, device="cpu", rng_seed=3)
+    want = [(e.numpy(), v) for e, _m, v in ref.run(pipelined=pipelined)]
+    before = YUV_TO_RGB.launches
+    pipe = VideoEmbedPipeline(cfg, clips, vit, ref.model.state_dict(), cuda,
+                              plan_ahead=2)
+    got = [(e, v) for e, _m, v in pipe.run(pipelined=pipelined)]
+    assert YUV_TO_RGB.launches - before == len(got) == len(want) == 9
+    for (eg, vg), (ec, vc) in zip(got, want):
+        assert vg == vc and eg.device.type == "cuda"
+        assert eg.dtype == torch.float32 and tuple(eg.shape) == (3, 128)
+        live = [si for si, ok in enumerate(vc) if ok]
+        a, b = eg.cpu().numpy()[live], ec[live]
+        assert np.isfinite(a).all() and np.abs(a - b).max() <= 2e-2
+        cos = (a * b).sum(-1) / (np.linalg.norm(a, axis=-1)
+                                 * np.linalg.norm(b, axis=-1))
+        assert (cos >= 0.9999).all()
+    # the caller's grad mode is its own
+    assert torch.is_grad_enabled() and not torch.is_inference_mode_enabled()

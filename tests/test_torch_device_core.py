@@ -11,10 +11,13 @@ import torch
 
 from __graft_entry__ import _random_plane_plan
 from hvqm4_tpu.ops import device_core as jdc
-from hvqm4_tpu_torch.convert import plan_to_torch
+from hvqm4_tpu_torch.convert import plan_to_torch, plane_plan_arrays
 from hvqm4_tpu_torch.ops import device_core as tdc
+from hvqm4_tpu_torch.plans import PlanePlan
+from hvqm4_tpu_torch.refdec import aot_acc, weight_blocks
 
 from .test_mc_exhaustive import MVS, _mc_scalar
+from .test_weight_aot_spec import _blocks_to_plane_np, _weight_scalar
 
 torch.set_num_threads(1)
 
@@ -138,3 +141,70 @@ def test_mc_all_phases_and_borders(mv):
     assert np.array_equal(want, got)
     spec = _mc_scalar(ref, mv, bh, bw).transpose(0, 2, 1, 3).reshape(ph, pw)
     assert np.array_equal(spec, got)
+
+
+# ---------------------------------------------------------------------------
+# The literal spec (FORMAT.md §6.2-6.3), as tests/test_weight_aot_spec.py
+# holds the JAX device core and golden decoder to it
+# ---------------------------------------------------------------------------
+
+def test_weight_blocks_spec_all_borders():
+    """DC smoothing at corners, edges and interior: the port's golden
+    decoder and its device core against the scalar transcription."""
+    rng = np.random.default_rng(0)
+    dcg = rng.integers(0, 256, (5, 7), dtype=np.uint8)
+    want = _weight_scalar(dcg)
+    assert np.array_equal(weight_blocks(dcg), want)
+    # an all-mode-0 plan makes every pixel the smoothing output
+    t = torch.from_numpy
+    plan = {"meta": t(np.zeros((5, 7), np.uint8)), "dc": t(dcg),
+            "desc": t(np.zeros((4, 5, 7), np.int32)),
+            "raw": t(np.zeros((20, 28), np.uint8))}
+    intra, _acc, _meta = tdc._intra_pixels_plane(
+        plan, torch.zeros((38, 70), dtype=torch.uint8))
+    assert intra.dtype == torch.int32
+    assert np.array_equal(intra.numpy(), _blocks_to_plane_np(want))
+    # and with a stream axis, each stream on its own grid
+    dcg2 = np.stack([dcg, dcg[::-1, ::-1].copy()])
+    plan2 = {"meta": t(np.zeros((2, 5, 7), np.uint8)), "dc": t(dcg2),
+             "desc": t(np.zeros((2, 4, 5, 7), np.int32)),
+             "raw": t(np.zeros((2, 20, 28), np.uint8))}
+    intra2, _acc, _meta = tdc._intra_pixels_plane(
+        plan2, torch.zeros((2, 38, 70), dtype=torch.uint8))
+    for si in range(2):
+        assert np.array_equal(intra2[si].numpy(),
+                              _blocks_to_plane_np(_weight_scalar(dcg2[si])))
+
+
+def test_aot_acc_spec_modular_and_mask():
+    """Modular nest wrap, stride 1/2, signed scale, count masking."""
+    rng = np.random.default_rng(1)
+    nest = rng.integers(0, 256, (38, 70), dtype=np.uint8)
+    p = PlanePlan.zeros(1, 1)
+    cases = [(69, 37, 2, 2, 10, -128),   # wraps both axes at stride 2
+             (0, 0, 1, 1, 255, 127)]
+    for b, (nx, ny, sx, sy, off, scale) in enumerate(cases):
+        p.basis_nx[0, 0, b] = nx
+        p.basis_ny[0, 0, b] = ny
+        p.basis_sx[0, 0, b] = sx
+        p.basis_sy[0, 0, b] = sy
+        p.basis_off[0, 0, b] = off
+        p.basis_scale[0, 0, b] = scale
+    # a third basis present in the arrays but masked out by count=2
+    p.basis_scale[0, 0, 2] = 99
+
+    want = np.zeros((4, 4), np.int64)
+    for nx, ny, sx, sy, off, scale in cases:
+        for i in range(4):
+            for j in range(4):
+                v = int(nest[(ny + i * sy) % 38, (nx + j * sx) % 70])
+                want[i, j] += (v - off) * scale
+
+    got = aot_acc(p, nest, np.array([[2]], np.int32))[0, 0]
+    assert np.array_equal(got, want)
+
+    # device core: the count comes from meta, so encode an AOT mode-2 block
+    p.mode[0, 0] = 2
+    arrs = plan_to_torch(plane_plan_arrays(p), "cpu")
+    _intra, acc, _meta = tdc._intra_pixels_plane(arrs, torch.from_numpy(nest))
+    assert np.array_equal(acc.numpy()[0:4, 0:4], want)

@@ -5,22 +5,27 @@ give the same results, so the two copies cannot drift unseen.
 """
 
 import dataclasses
+import json
 import threading
 
 import numpy as np
 import pytest
 
+from hvqm4_tpu import audio as jaudio
 from hvqm4_tpu import cli as jcli
 from hvqm4_tpu import serve as jserve
 from hvqm4_tpu.config import SeqConfig as JaxSeqConfig
+from hvqm4_tpu.container import ContainerError as JaxContainerError
 from hvqm4_tpu.container import Demuxer as JaxDemuxer
 from hvqm4_tpu.native import NativePlanner as JaxPlanner
 from hvqm4_tpu.session import DecoderSession as JaxSession
 from hvqm4_tpu.utils import hashing as jhashing
-from hvqm4_tpu_torch import cli, native, refdec, serve
+from hvqm4_tpu.utils.stats import clip_stats as jax_clip_stats
+from hvqm4_tpu_torch import audio, cli, native, refdec, serve
 from hvqm4_tpu_torch.config import SeqConfig
-from hvqm4_tpu_torch.container import Demuxer
+from hvqm4_tpu_torch.container import ContainerError, Demuxer
 from hvqm4_tpu_torch.utils import hashing
+from hvqm4_tpu_torch.utils.stats import clip_stats
 from tools.encoder import make_clip
 
 from .conftest import REPO
@@ -93,6 +98,80 @@ def test_demuxer_and_config_match_jax(case):
             == [dataclasses.astuple(r) for r in theirs.records()])
     assert ([r.frame_char for r in ours.video_records()]
             == [r.frame_char for r in theirs.video_records()])
+    assert ours.block_video_counts() == theirs.block_video_counts()
+    assert sum(ours.block_video_counts()) == ours.info.video_frames
+    assert ([dataclasses.astuple(r) for r in ours.audio_records()]
+            == [dataclasses.astuple(r) for r in theirs.audio_records()])
+
+
+def test_block_for_time_and_audio_records_match_jax():
+    """A two-block clip with audio: every block index over a sweep of times
+    (0, inside each frame, the block boundary, past the end), the refusal of
+    a negative time, and the audio records field by field."""
+    data = make_clip(SeqConfig(64, 48), ["IPP", "IP"], seed=57,
+                     audio_channels=2)
+    ours, theirs = Demuxer(data), JaxDemuxer(data)
+    usec = ours.info.usec_per_frame
+    assert ours.block_video_counts() == theirs.block_video_counts() == [3, 2]
+    times = [0, 1e-9, 2.999 * usec / 1e6, 3 * usec / 1e6, 3.5 * usec / 1e6,
+             5 * usec / 1e6, 9999.0]
+    times += [k * usec / 4e6 for k in range(24)]
+    got = [ours.block_for_time(t) for t in times]
+    assert got == [theirs.block_for_time(t) for t in times]
+    assert got[:7] == [0, 0, 0, 1, 1, 1, 1]
+    with pytest.raises(ContainerError) as e_ours:
+        ours.block_for_time(-0.5)
+    with pytest.raises(JaxContainerError) as e_theirs:
+        theirs.block_for_time(-0.5)
+    assert str(e_ours.value) == str(e_theirs.value)
+    a = list(ours.audio_records())
+    b = list(theirs.audio_records())
+    assert len(a) == len(b) == ours.info.audio_frames == 2
+    for ra, rb in zip(a, b):
+        assert dataclasses.asdict(ra) == dataclasses.asdict(rb)
+
+
+@pytest.mark.parametrize("channels", [1, 2])
+def test_audio_matches_jax(tmp_path, channels):
+    """The port's IMA-ADPCM copy: tables, encode, decode and the WAV file
+    equal the JAX package's on a seeded signal."""
+    assert np.array_equal(audio.STEP_TABLE, jaudio.STEP_TABLE)
+    assert np.array_equal(audio.INDEX_TABLE, jaudio.INDEX_TABLE)
+    rng = np.random.default_rng(40 + channels)
+    t = np.arange(501)[:, None] / 32000.0
+    sig = 9000 * np.sin(2 * np.pi * 440 * (1 + np.arange(channels)) * t)
+    sig = (sig + rng.normal(0, 300, sig.shape)).astype(np.int16)
+    payloads = [audio.encode_record(sig[:257]), audio.encode_record(sig[257:])]
+    assert payloads == [jaudio.encode_record(sig[:257]),
+                        jaudio.encode_record(sig[257:])]
+    ours = [audio.decode_record(p, channels) for p in payloads]
+    theirs = [jaudio.decode_record(p, channels) for p in payloads]
+    for a, b in zip(ours, theirs):
+        assert a.dtype == b.dtype == np.int16 and np.array_equal(a, b)
+    assert ours[0].shape == (257, channels)
+    audio.records_to_wav(ours, 32000, str(tmp_path / "a.wav"))
+    jaudio.records_to_wav(theirs, 32000, str(tmp_path / "b.wav"))
+    wav = (tmp_path / "a.wav").read_bytes()
+    assert wav[:4] == b"RIFF" and wav == (tmp_path / "b.wav").read_bytes()
+    with pytest.raises(ContainerError, match="too short"):
+        audio.decode_record(payloads[0][:3], channels)
+    with pytest.raises(ContainerError, match="truncated"):
+        audio.decode_record(payloads[0][:-5], channels)
+
+
+@pytest.mark.parametrize("case", ["i320.h4m", (64, 48, 2, ["IPB"], 58)])
+def test_clip_stats_match_jax(case):
+    """`clip_stats` over the C++ planner gives the JSON that the JAX
+    package's gives over its Python planner, byte for byte."""
+    if isinstance(case, str):
+        data = _clip(case)
+    else:
+        w, h, samp, gops, seed = case
+        data = make_clip(SeqConfig(w, h, samp, samp), gops, seed=seed)
+    got = clip_stats(data)
+    assert got == jax_clip_stats(data)
+    assert set(json.loads(got)) == {"frames", "video_payload_bytes",
+                                    "block_classes", "modes"}
 
 
 def test_digests_and_y4m_header_match_jax(oracle_bin):

@@ -271,6 +271,19 @@ batches = serve.fetch_metrics(*srv.server_address)["batches"]
 srv.shutdown()
 srv.server_close()
 assert yuv == frames and batches == 1
+from hvqm4_tpu_torch import FrameBatchLoader, VideoEmbedPipeline, audio
+from hvqm4_tpu_torch.models.vit import ViTConfig
+from hvqm4_tpu_torch.utils.stats import clip_stats
+assert audio.decode_record(audio.encode_record(
+    __import__("numpy").zeros((8, 1), "int16")), 1).shape == (8, 1)
+assert '"frames"' in clip_stats(clip)
+pipe = VideoEmbedPipeline(cfg, [clip, clip], ViTConfig(16, 8, 32, 1, 2),
+                          device="cpu")
+emb, _metas, valid = next(pipe.run())
+assert tuple(emb.shape) == (2, 32) and valid == [True, True]
+rgb_batch, valid = next(iter(FrameBatchLoader(cfg, [clip, clip],
+                                              device="cpu")))
+assert tuple(rgb_batch.shape) == (2, 16, 32, 3) and valid == [True, True]
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "hvqm4_tpu"))
 assert loaded == ["hvqm4_tpu", "jax"], loaded   # only the blockers
@@ -281,8 +294,8 @@ print("ok", len(mods), len(frames), len(rgb))
 def test_port_never_imports_jax(tmp_path):
     """Every module of the port and `chip_smoke` import, and a clip
     decodes through the session, the lock-step step, the arena decoder
-    (pipelined, K=2) and the server, unbatched and batched, with both JAX
-    and the JAX package blocked."""
+    (pipelined, K=2), the server, unbatched and batched, one pipeline step
+    and one loader batch, with both JAX and the JAX package blocked."""
     clip = tmp_path / "c.h4m"
     clip.write_bytes(make_clip(SeqConfig(32, 16), ["IPB"], seed=77))
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -291,4 +304,4 @@ def test_port_never_imports_jax(tmp_path):
     assert res.returncode == 0, res.stderr[-2000:]
     ok, n_mods, n_frames, n_rgb = res.stdout.split()
     assert (ok, n_frames, n_rgb) == ("ok", "3", "3")
-    assert int(n_mods) >= 20
+    assert int(n_mods) >= 24
