@@ -52,6 +52,22 @@ Phases, in order; any failure exits non-zero before the result line:
    on the card: `decode --start-time` inside ref640's second block equals
    `--start-block 1` and the oracle's frames, and `stats` gives its four
    keys.
+5d. encoder: the first two display-order frames of ref640.h4m (the
+   oracle's) as source, at 640x480. `encode_tpu.NestSearch(nest,
+   "cuda").best` on the first frame's 19,200 luma residuals, against a nest
+   built by `plans.build_nest`, must equal the same call on `device="cpu"`
+   in descriptors, terms and scales. `VideoEncoder(cfg,
+   use_tpu_search=True, device="cuda").encode(frames, ["IP"])`: the clip
+   through `DecoderSession` on cuda, every frame's on-device csum equal to
+   `oracle --csum` of that clip; the luma PSNR of the oracle's decode
+   against the source must be the one a CPU run of the same encode gave
+   (`ENCODE_PSNR`; the encoder is deterministic). `cli transcode` of that
+   clip on the default device: exit 0, geometry, frame count and
+   `usec_per_frame` kept, the result decoding identically by the oracle and
+   by the session on the card. Those three session decodes of one I and one
+   P frame must launch `intra_synth_noacc`, `intra_synth_acc` and
+   `inter_combine` 9 times each (3 planes x 3 decodes) and `yuv_to_rgb`
+   never. Then the search's and the encoder's times.
 6. serve: the port's `DecodeServer` on cuda, on a thread, answers both
    clips over TCP in YUV (FNV-1a == `oracle --hash`), RGB (== the integer
    formula on the oracle's frames) and EMBED (28 finite 384-vectors; two
@@ -86,7 +102,7 @@ Phases, in order; any failure exits non-zero before the result line:
    over one pipeline run.
 
 `launches` in the kernels line is the sum of the counted phases 4-5, 5b,
-5c and 6; its times are the luma grid's (480x640 for `yuv_to_rgb`) at N=8.
+5c, 5d and 6; its times are the luma grid's (480x640 for `yuv_to_rgb`) at N=8.
 Before
 the last lines the script fails if any module of JAX or of `hvqm4_tpu` was
 imported. The line before the last is a JSON object of the kernels; the
@@ -1175,6 +1191,208 @@ def phase_consumers(dev, cfg, clips: dict, oracle: Path,
     return launches
 
 
+# Luma PSNR (dB) of phase 5d's encoded clip, decoded by the oracle, against
+# its source, by display id: from `encoder_clip(cfg, src, "cpu")` on a CPU.
+# The encoder is deterministic, so the card's run must give the same.
+ENCODE_PSNR = (40.15144579922554, 18.014456742058343)
+
+
+def encoder_source(cfg, clips: dict, oracle: Path) -> list:
+    """The first two frames of ref640.h4m in display order, as the oracle
+    decodes them: [[Y, U, V] numpy planes] x 2."""
+    from hvqm4_tpu_torch.container import Demuxer
+    from hvqm4_tpu_torch.native import NativePlanner
+
+    frames, _hashes = oracle_frames(oracle, CLIPS[0], cfg)
+    planner = NativePlanner(cfg)
+    disp = [planner.plan_frame(r.frame_char, r.payload).display_id
+            for r in Demuxer(clips[CLIPS[0]]).video_records()]
+    return [split_planes(frames[disp.index(d)], cfg) for d in (0, 1)]
+
+
+def encoder_clip(cfg, src: list, device) -> tuple:
+    """The phase's encode, ["IP"] with the full-nest search on `device`:
+    (clip bytes, per `_encode_frame` call a dict of the frame type, its
+    seconds, the seconds inside the host's motion search `_mb_search`, and
+    the calls of and seconds inside `NestSearch.best`)."""
+    from hvqm4_tpu_torch.encode import VideoEncoder
+    from hvqm4_tpu_torch.encode_tpu import NestSearch
+
+    enc = VideoEncoder(cfg, use_tpu_search=True, device=device)
+    spent, cur = [], {}
+
+    def clocked(fn, key):
+        def inner(*args):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args)
+            finally:
+                cur[key] = cur.get(key, 0.0) + time.perf_counter() - t0
+                cur[key + "_calls"] = cur.get(key + "_calls", 0) + 1
+        return inner
+
+    encode_frame = enc._encode_frame
+
+    def frame(ftype, *args):
+        cur.clear()
+        t0 = time.perf_counter()
+        payload = encode_frame(ftype, *args)
+        spent.append({"ftype": ftype, "s": time.perf_counter() - t0, **cur})
+        return payload
+
+    enc._encode_frame = frame
+    enc._mb_search = clocked(enc._mb_search, "motion")
+    best = NestSearch.best
+    NestSearch.best = clocked(best, "best")
+    try:
+        return enc.encode(src, ["IP"]), spent
+    finally:
+        NestSearch.best = best
+
+
+def luma_psnr(cfg, src: list, decoded: list, disp: list) -> list:
+    """PSNR in dB of each decoded frame's luma against its source frame,
+    ordered by display id."""
+    out = {}
+    for frame, d in zip(decoded, disp):
+        y = split_planes(frame, cfg)[0].astype(np.float64)
+        mse = float(np.mean((y - src[d][0].astype(np.float64)) ** 2))
+        out[d] = 99.0 if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
+    return [out[d] for d in sorted(out)]
+
+
+def oracle_decode(oracle: Path, path: Path, cfg) -> list:
+    """The oracle's decode of the clip at `path`: planar YUV bytes a frame."""
+    out = path.with_suffix(".yuv")
+    subprocess.run([str(oracle), str(path), str(out)], check=True)
+    data = out.read_bytes()
+    return [data[i:i + cfg.frame_bytes]
+            for i in range(0, len(data), cfg.frame_bytes)]
+
+
+def session_csums(cfg, data: bytes, dev) -> list:
+    from hvqm4_tpu_torch.session import DecoderSession
+    from hvqm4_tpu_torch.utils.hashing import frame_csum
+
+    return [f"{int(frame_csum(f.planes)):08x}"
+            for f in DecoderSession(cfg, dev).decode_clip(data)]
+
+
+def phase_encoder(dev, cfg, clips: dict, oracle: Path, kernels: list,
+                  tag: str) -> dict:
+    """Phase 5d: the encoder side at 640x480 on the card: the full-nest
+    search against its CPU run, an encode with the search on the card and a
+    `cli transcode`, both clips against the oracle through the session on
+    the card. Returns the launch counts of the phase; the times come after
+    the counts were read."""
+    import torch
+
+    from hvqm4_tpu_torch import cli
+    from hvqm4_tpu_torch.container import Demuxer
+    from hvqm4_tpu_torch.encode import _blockify
+    from hvqm4_tpu_torch.encode_tpu import NestSearch
+    from hvqm4_tpu_torch.plans import build_nest
+    from hvqm4_tpu_torch.utils.hashing import oracle_csums
+
+    SCRATCH.mkdir(parents=True, exist_ok=True)
+    src = encoder_source(cfg, clips, oracle)
+
+    # the search: the first frame's luma residuals around their block means
+    bh, bw = cfg.block_grids[0]
+    blocks = _blockify(src[0][0]).astype(np.int32).reshape(bh, bw, 16)
+    dcg = np.clip(np.round(blocks.mean(2)), 0, 255).astype(np.uint8)
+    nest = build_nest(cfg, dcg, 0, 0)
+    resid = blocks.reshape(-1, 16) - dcg.reshape(-1, 1).astype(np.int32)
+    on_card, on_cpu = NestSearch(nest, dev), NestSearch(nest, "cpu")
+    if not on_card.ok:
+        fail("encoder: the nest of ref640's first frame has no candidate")
+    got, want = on_card.best(resid), on_cpu.best(resid)
+    for what, g, w in zip(("descriptors", "terms", "scales"), got, want):
+        if not np.array_equal(g, w):
+            bad = int(np.argwhere((g != w).reshape(len(g), -1).any(1))[0, 0])
+            fail(f"encoder: the search on {dev} and on the CPU differ in "
+                 f"their {what}, first at residual {bad}")
+    print(f"nest search on {dev}: {len(resid)} residuals x "
+          f"{len(on_card.C)} candidates, descriptors, terms and scales == "
+          f"the CPU's; {int((got[2] != 0).sum())} non-zero scales")
+
+    # the encode with the search on the card
+    clip_a, spent = encoder_clip(cfg, src, dev)
+    path_a = SCRATCH / "encoded.h4m"
+    path_a.write_bytes(clip_a)
+    info = Demuxer(clip_a).info
+    if info.cfg != cfg or info.video_frames != 2:
+        fail(f"encoder: the clip is {info.cfg} with {info.video_frames} "
+             f"frames")
+    want_a = oracle_csums(oracle, path_a)
+    if session_csums(cfg, clip_a, dev) != want_a or len(want_a) != 2:
+        fail(f"encoder: the encoded clip through the session on {dev} "
+             f"differs from oracle --csum")
+    psnr = luma_psnr(cfg, src, oracle_decode(oracle, path_a, cfg), [0, 1])
+    print(f"encode on {dev} (search on the card, [\"IP\"]): {len(clip_a)} "
+          f"bytes, session csum == oracle on both frames; luma PSNR of the "
+          f"oracle's decode against the source "
+          f"{', '.join(f'{p:.6f}' for p in psnr)} dB")
+    if any(abs(p - w) > 1e-9 for p, w in zip(psnr, ENCODE_PSNR)):
+        fail(f"encoder: luma PSNR {psnr} differs from the CPU run's "
+             f"{list(ENCODE_PSNR)}")
+
+    # transcode on the default device (the card)
+    path_b = SCRATCH / "transcoded.h4m"
+    path_b.unlink(missing_ok=True)
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        rc = cli.main(["transcode", str(path_a), str(path_b), "--gops", "IP"])
+    transcode_s = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"cli transcode: exit {rc}: {err.getvalue().strip()}")
+    clip_b = path_b.read_bytes()
+    info_b = Demuxer(clip_b).info
+    if (info_b.cfg, info_b.video_frames, info_b.usec_per_frame) != \
+            (cfg, 2, info.usec_per_frame):
+        fail(f"cli transcode: {info_b.cfg}, {info_b.video_frames} frames, "
+             f"{info_b.usec_per_frame} us a frame")
+    want_b = oracle_csums(oracle, path_b)
+    if session_csums(cfg, clip_b, dev) != want_b or len(want_b) != 2:
+        fail(f"cli transcode: the result through the session on {dev} "
+             f"differs from oracle --csum")
+    print(f"cli transcode on {dev}: {err.getvalue().strip()}; geometry, "
+          f"frame count and usec_per_frame kept, session csum == oracle on "
+          f"both frames")
+    torch.cuda.synchronize()
+    launches = {k.symbol: k.launches for k in kernels}
+
+    # times (after the counts were read)
+    best_ms = cuda_ms(lambda: on_card.best(resid))
+    cpu_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        on_cpu.best(resid)
+        cpu_s.append(time.perf_counter() - t0)
+    build_s = []
+    for device in (dev, "cpu"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        NestSearch(nest, device)
+        torch.cuda.synchronize()
+        build_s.append(time.perf_counter() - t0)
+    print(f"time nest search best B={len(resid)} x {len(on_card.C)} "
+          f"candidates: {best_ms:.4f} ms a call on {dev} (CUDA events, "
+          f"median of 20, the upload and the three downloads inside), "
+          f"{1e3 * statistics.median(cpu_s):.1f} ms on the CPU (host clock, "
+          f"median of 3); construction {1e3 * build_s[0]:.2f} ms on {dev}, "
+          f"{1e3 * build_s[1]:.2f} ms on the CPU [{tag}]")
+    print("time encode 640x480, search on the card: " + ", ".join(
+        f"{f['ftype']} frame {f['s']:.3f} s (host motion search "
+        f"{f.get('motion', 0.0):.3f} s in {f.get('motion_calls', 0)} calls, "
+        f"NestSearch.best {f.get('best', 0.0):.3f} s in "
+        f"{f.get('best_calls', 0)} calls)" for f in spent)
+          + f"; cli transcode (decode on the card, the sampled host search, "
+          f"[\"IP\"]) {transcode_s:.3f} s [{tag}]")
+    return launches
+
+
 def phase_serve(dev, cfg, clips: dict, oracle: Path, kernels: list,
                 tag: str) -> dict:
     """Phase 6: the port's decode service on the card. Checks every reply,
@@ -1521,6 +1739,21 @@ def main() -> int:
             fail(f"{sym} launched {consumer_launches[sym]} times on the "
                  f"consumer paths, want {n}")
 
+    # phase 5d: the encoder side, counted: the session decodes one I and
+    # one P frame (3 planes each) of the encoded clip, of the same clip
+    # inside `cli transcode` and of the transcoded one
+    for k in kernels:
+        k.launches = 0
+    encoder_launches = phase_encoder(dev, cfg, clips, oracle, kernels, tag)
+    print(f"launches on the encoder side (phase 5d, 3 session decodes of "
+          f"[\"IP\"]): {encoder_launches}")
+    for sym, n in (("hvqm4_intra_synth_noacc", 9),
+                   ("hvqm4_intra_synth_acc", 9),
+                   ("hvqm4_inter_combine", 9), ("hvqm4_yuv_to_rgb", 0)):
+        if encoder_launches[sym] != n:
+            fail(f"{sym} launched {encoder_launches[sym]} times on the "
+                 f"encoder side, want {n}")
+
     # phase 6: the decode service, counted
     for k in kernels:
         k.launches = 0
@@ -1549,6 +1782,7 @@ def main() -> int:
                      "launches": (decode_launches[k.symbol]
                                   + arena_launches[k.symbol]
                                   + consumer_launches[k.symbol]
+                                  + encoder_launches[k.symbol]
                                   + serve_launches[k.symbol]),
                      "max_abs_err": err[name], "ms": t["ms"],
                      "plain_ms": t["plain_ms"],

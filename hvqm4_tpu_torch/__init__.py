@@ -8,8 +8,11 @@ its original by `tests/test_torch_host.py`:
 - `native`: the C++ entropy planner (`_entropy.cc`, byte for byte), built
   with g++ into `build/` and bound with ctypes;
 - `refdec`: the NumPy golden decoder (the third party of `cli verify`);
-- `audio`: IMA-ADPCM audio records → PCM, `.wav`;
-- `utils.profiling`: `StageTimer`.
+- `audio`: IMA-ADPCM audio records ↔ PCM, `.wav`;
+- `utils.profiling`: `StageTimer`;
+- `bitio` (the writers only), `gop`, `encode`: the encoder, numpy on the
+  host, its closed loop on the C++ planner and `refdec`, held byte-equal to
+  the JAX package's streams by `tests/test_torch_encode.py`.
 
 The device half is rewritten here:
 
@@ -31,9 +34,12 @@ The device half is rewritten here:
   `VideoEmbedPipeline` (streams → ViT embeddings, the ViT at batch N) and
   `FrameBatchLoader` (streams → RGB batches, in decode or display order);
 - `utils.stats`: per-clip mode histograms over the C++ planner;
+- `encode_tpu`: the encoder's full-nest search (`NestSearch`), every
+  candidate scored on the device (`VideoEncoder(use_tpu_search=True)`);
 - `session`, `cli`: the frame-at-a-time API and command line (`info`,
-  `decode`, `hash`, `verify`, `audio`, `stats`, `remote`;
-  `decode --gop-parallel` and `verify --batched` on the arena decoder);
+  `decode`, `hash`, `verify`, `audio`, `stats`, `remote`, `encode`,
+  `transcode`; `decode --gop-parallel` and `verify --batched` on the arena
+  decoder);
 - `serve`: the decode service (YUV, RGB and ViT-embedding requests, with
   continuous batching on the arena decoder), its wire protocol and its
   clients.
@@ -61,4 +67,8 @@ def __getattr__(name):  # lazy, like hvqm4_tpu: importing the package is free
         from . import data
 
         return data.FrameBatchLoader
+    if name in ("VideoEncoder", "encode_to_size"):
+        from . import encode
+
+        return getattr(encode, name)
     raise AttributeError(name)

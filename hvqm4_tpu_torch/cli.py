@@ -14,17 +14,28 @@
                                           [--mode yuv|rgb|embed] [--token T]
                                           [--timeout SEC]
     python -m hvqm4_tpu_torch.cli remote  HOST:PORT --metrics [--prometheus]
+    python -m hvqm4_tpu_torch.cli encode  in.yuv|in.y4m out.h4m
+                                          [--width W --height H]
+                                          [--sampling 420|444] [--gops IPPP,IBPBP]
+                                          [--quality L] [--slices S]
+                                          [--dc-shift D] [--psy P] [--audio a.wav]
+                                          [--target-kb KB [--single-pass]]
+    python -m hvqm4_tpu_torch.cli transcode clip.h4m out.h4m [--device cuda]
+                                          [--quality L | --target-kb KB]
+                                          [--gops ...] [--slices S] [--dc-shift D]
 
 `decode --gop-parallel` decodes the clip's GOP blocks as parallel streams
 of the arena `MultiStreamDecoder`; `verify --batched` checks that decoder
 on one stream through on-device checksums against `oracle --csum`.
 `remote` is the client of the decode service (`python -m
-hvqm4_tpu_torch.serve`).
+hvqm4_tpu_torch.serve`). `encode` turns raw planar YUV or a YUV4MPEG2 stream
+into an `.h4m` clip on the host; `transcode` decodes a clip on `--device` and
+encodes it again at another quality or size (audio carried through).
 
 `--device` defaults to `cuda`. Without a card the command fails with a
 one-line error; it never falls back to the CPU. `--device cpu` runs the
-plain PyTorch path on purpose. `info`, `audio`, `stats` and `remote` use no
-device and take no `--device`.
+plain PyTorch path on purpose. `info`, `audio`, `stats`, `remote` and
+`encode` use no device and take no `--device`.
 """
 
 from __future__ import annotations
@@ -38,10 +49,12 @@ import tempfile
 from fractions import Fraction
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from . import refdec
 from .audio import decode_record, records_to_wav
+from .config import SeqConfig
 from .container import ContainerError, Demuxer
 from .native import PlannerError
 from .ops.csc import frame_to_rgb
@@ -304,8 +317,211 @@ def cmd_remote(args) -> int:
     return 0
 
 
+def _default_gops(n: int) -> list[str]:
+    """12-frame I+P GOP blocks covering n frames."""
+    gops = []
+    left = n
+    while left > 0:
+        g = min(12, left)
+        gops.append("I" + "P" * (g - 1))
+        left -= g
+    return gops
+
+
+def cmd_transcode(args) -> int:
+    """Decode a clip and re-encode it at a new quality / size (audio
+    remuxed through IMA-ADPCM when present)."""
+    from .encode import VideoEncoder, encode_to_size
+
+    dev = _device(args.device)
+    data = Path(args.clip).read_bytes()
+    d = Demuxer(data)
+    cfg = d.info.cfg
+    sess = DecoderSession(cfg, dev)
+    # the encoder takes display-ordered frames
+    frames = [f.to_numpy() for f in sess.decode_clip_display_order(data)]
+    gops = args.gops.split(",") if args.gops else _default_gops(len(frames))
+    audio = None
+    audio_rate = 32000
+    if d.info.audio_channels:
+        recs = [decode_record(r.payload, d.info.audio_channels)
+                for r in d.audio_records()]
+        if recs:
+            audio = np.concatenate(recs)
+            audio_rate = d.info.audio_sample_rate
+    if args.target_kb is not None:
+        if audio is not None:
+            print(f"{PROG}: error: --target-kb transcode is video-only "
+                  "(source has audio; use --quality)", file=sys.stderr)
+            return 1
+        out, lam = encode_to_size(cfg, frames, gops,
+                                  int(args.target_kb * 1024),
+                                  slices=args.slices,
+                                  dc_shift=args.dc_shift,
+                                  usec_per_frame=d.info.usec_per_frame)
+        print(f"rate control: lambda={lam:.3f}", file=sys.stderr)
+    else:
+        out = VideoEncoder(cfg, lambda_bits=args.quality, slices=args.slices,
+                           dc_shift=args.dc_shift).encode(
+            frames, gops, usec_per_frame=d.info.usec_per_frame,
+            audio=audio, audio_rate=audio_rate)
+    Path(args.output).write_bytes(out)
+    print(f"transcoded {len(frames)} frames: {len(data)} -> {len(out)} bytes"
+          f" ({len(out) / max(len(data), 1):.2f}x)", file=sys.stderr)
+    return 0
+
+
+_Y4M_SAMP = {"420jpeg": 2, "420mpeg2": 2, "420paldv": 2, "420": 2, "444": 1}
+
+
+def _parse_y4m(data: bytes):
+    """YUV4MPEG2 stream → (width, height, samp, usec_per_frame, frames).
+
+    Self-describing encoder input (the inverse of decode --y4m): geometry,
+    chroma sampling, and frame rate come from the stream header, so
+    `ffmpeg -i anything -f yuv4mpegpipe` feeds the encoder directly.
+    Chroma siting tags (jpeg/mpeg2/paldv) are accepted as plain 4:2:0."""
+    nl = data.find(b"\n")
+    if nl < 0:
+        raise ValueError("truncated y4m header")
+    fields = data[:nl].decode("ascii", "replace").split()
+    w = h = None
+    num, den = 30000, 1001
+    chroma = "420jpeg"
+    for f in fields[1:]:
+        tag, val = f[:1], f[1:]
+        try:
+            if tag == "W":
+                w = int(val)
+            elif tag == "H":
+                h = int(val)
+            elif tag == "F":
+                num, den = map(int, val.split(":"))
+            elif tag == "C":
+                chroma = val
+        except ValueError:
+            raise ValueError(f"bad y4m header field {f!r}") from None
+    samp = _Y4M_SAMP.get(chroma)
+    if samp is None:
+        raise ValueError(f"unsupported y4m chroma C{chroma} "
+                         f"(supported: {'/'.join(sorted(_Y4M_SAMP))})")
+    if not w or not h or w <= 0 or h <= 0 or num <= 0 or den <= 0:
+        raise ValueError("y4m header missing/invalid W/H/F")
+    cfg = SeqConfig(w, h, samp, samp)
+    shapes, fb = cfg.plane_shapes, cfg.frame_bytes
+    frames = []
+    off = nl + 1
+    while off < len(data):
+        fnl = data.find(b"\n", off)
+        if fnl < 0 or not data[off:fnl].startswith(b"FRAME"):
+            raise ValueError(f"bad y4m FRAME marker at byte {off}")
+        off = fnl + 1
+        if off + fb > len(data):
+            raise ValueError("truncated y4m frame payload")
+        planes, poff = [], off
+        for ph, pw in shapes:
+            planes.append(np.frombuffer(data, np.uint8,
+                                        ph * pw, poff).reshape(ph, pw))
+            poff += ph * pw
+        frames.append(planes)
+        off += fb
+    return w, h, samp, round(1_000_000 * den / num), frames
+
+
+def cmd_encode(args) -> int:
+    """Raw planar YUV or YUV4MPEG2 → `.h4m`, on the host."""
+    from .encode import VideoEncoder
+
+    raw = Path(args.input).read_bytes()
+    usec = 33366
+    if raw.startswith(b"YUV4MPEG2"):
+        try:
+            w, h, samp, usec, frames = _parse_y4m(raw)
+        except ValueError as e:
+            print(f"{PROG}: error: {e}", file=sys.stderr)
+            return 1
+        if (args.width is not None and args.width != w) or \
+           (args.height is not None and args.height != h):
+            print(f"{PROG}: error: --width/--height conflict with the "
+                  f"y4m header ({w}x{h})", file=sys.stderr)
+            return 1
+        if args.sampling is not None and \
+                args.sampling != ("420" if samp == 2 else "444"):
+            print(f"{PROG}: error: --sampling conflicts with the y4m "
+                  f"header chroma", file=sys.stderr)
+            return 1
+        cfg = SeqConfig(w, h, samp, samp)
+        n = len(frames)
+    else:
+        if args.width is None or args.height is None:
+            print(f"{PROG}: error: --width/--height are required for raw "
+                  "YUV input (or feed a .y4m stream)", file=sys.stderr)
+            return 1
+        samp = 2 if (args.sampling or "420") == "420" else 1
+        cfg = SeqConfig(args.width, args.height, samp, samp)
+        fb = cfg.frame_bytes
+        if len(raw) % fb:
+            print(f"{PROG}: error: input not a multiple of {fb} bytes",
+                  file=sys.stderr)
+            return 1
+        n = len(raw) // fb
+        shapes = cfg.plane_shapes
+        frames = []
+        for i in range(n):
+            off = i * fb
+            planes = []
+            for h, w in shapes:
+                planes.append(
+                    np.frombuffer(raw, np.uint8, h * w, off).reshape(h, w))
+                off += h * w
+            frames.append(planes)
+    gops = args.gops.split(",") if args.gops else _default_gops(n)
+    enc = VideoEncoder(cfg, lambda_bits=args.quality, slices=args.slices,
+                       dc_shift=args.dc_shift, psy=args.psy)
+    audio = None
+    audio_rate = 32000
+    if args.audio:
+        import wave
+
+        with wave.open(args.audio, "rb") as w:
+            if w.getsampwidth() != 2:
+                print(f"{PROG}: error: audio must be 16-bit PCM WAV",
+                      file=sys.stderr)
+                return 1
+            audio_rate = w.getframerate()
+            audio = np.frombuffer(
+                w.readframes(w.getnframes()), np.int16
+            ).reshape(-1, w.getnchannels())
+    if args.target_kb is not None:
+        from .encode import encode_to_size
+
+        if audio is not None:
+            print(f"{PROG}: error: --target-kb does not support --audio "
+                  "yet (video-only rate control)", file=sys.stderr)
+            return 1
+        if args.single_pass:
+            data = enc.encode(frames, gops, usec_per_frame=usec,
+                              target_bytes=int(args.target_kb * 1024))
+            lam = enc.lam
+        else:
+            data, lam = encode_to_size(cfg, frames, gops,
+                                       int(args.target_kb * 1024),
+                                       slices=args.slices,
+                                       dc_shift=args.dc_shift,
+                                       psy=args.psy,
+                                       usec_per_frame=usec)
+        print(f"rate control: lambda={lam:.3f}", file=sys.stderr)
+    else:
+        data = enc.encode(frames, gops, usec_per_frame=usec,
+                          audio=audio, audio_rate=audio_rate)
+    Path(args.output).write_bytes(data)
+    print(f"encoded {n} frames -> {args.output} ({len(data)} bytes)",
+          file=sys.stderr)
+    return 0
+
+
 # subcommands that use no device and take no --device
-_HOST_ONLY = (cmd_info, cmd_audio, cmd_stats, cmd_remote)
+_HOST_ONLY = (cmd_info, cmd_audio, cmd_stats, cmd_remote, cmd_encode)
 
 
 def main(argv=None) -> int:
@@ -368,6 +584,51 @@ def main(argv=None) -> int:
     p.add_argument("--prometheus", action="store_true",
                    help="with --metrics: Prometheus text format")
     p.set_defaults(fn=cmd_remote)
+
+    p = sub.add_parser("encode")
+    p.add_argument("input", help="raw planar YUV file (frames back-to-back) "
+                                 "or a YUV4MPEG2 (.y4m) stream, e.g. from "
+                                 "`ffmpeg -i in.mp4 -f yuv4mpegpipe in.y4m`")
+    p.add_argument("output")
+    p.add_argument("--width", type=int,
+                   help="frame width (required for raw YUV; .y4m is "
+                        "self-describing)")
+    p.add_argument("--height", type=int)
+    p.add_argument("--sampling", choices=["420", "444"], default=None)
+    p.add_argument("--gops", help="display-order patterns, e.g. IPPP,IBPBP")
+    p.add_argument("--quality", type=float, default=4.0,
+                   help="lambda (bits weight); lower = higher quality")
+    p.add_argument("--slices", type=int, default=1,
+                   help="entropy slices per frame (FORMAT.md §9; enables "
+                        "slice-parallel host planning on decode)")
+    p.add_argument("--audio", help="16-bit PCM WAV to mux as IMA-ADPCM "
+                                   "records (one per GOP block)")
+    p.add_argument("--target-kb", type=float, default=None,
+                   help="rate control: bisect lambda to hit this clip size "
+                        "(overrides --quality)")
+    p.add_argument("--dc-shift", type=int, default=0,
+                   help="DC delta quantization shift 0..7 (coarser DCs, "
+                        "fewer bits)")
+    p.add_argument("--psy", type=float, default=0.0,
+                   help="psychovisual weighting strength 0..1: shift bits "
+                        "from textured (masking) to flat regions")
+    p.add_argument("--single-pass", action="store_true",
+                   help="with --target-kb: per-GOP adaptive lambda in ONE "
+                        "pass instead of bisection re-encodes")
+    p.set_defaults(fn=cmd_encode)
+
+    p = sub.add_parser("transcode")
+    p.add_argument("clip")
+    p.add_argument("output")
+    p.add_argument("--quality", type=float, default=4.0,
+                   help="lambda (bits weight); lower = higher quality")
+    p.add_argument("--target-kb", type=float, default=None,
+                   help="rate control: bisect lambda to hit this clip size "
+                        "(video-only; overrides --quality)")
+    p.add_argument("--gops", help="display-order patterns for the re-encode")
+    p.add_argument("--slices", type=int, default=1)
+    p.add_argument("--dc-shift", type=int, default=0)
+    p.set_defaults(fn=cmd_transcode)
 
     for p in sub.choices.values():
         if p.get_default("fn") not in _HOST_ONLY:

@@ -24,6 +24,8 @@ FRAME_B = 0x30
 MEDIA_AUDIO = 0
 MEDIA_VIDEO = 1
 
+N_STREAMS = 6  # substreams of a frame payload (docs/FORMAT.md §3)
+
 MAX_BASES = 4
 
 

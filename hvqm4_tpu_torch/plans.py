@@ -26,7 +26,7 @@ import dataclasses
 
 import numpy as np
 
-from .config import MAX_BASES
+from .config import MAX_BASES, SeqConfig
 
 CLS_INTRA = 0  # `cls` of an intra block
 REF_LAST = 1   # `refsel` of a block predicted from ref_last
@@ -102,3 +102,12 @@ class FramePlan:
         if self.nest is not None and not np.array_equal(self.nest, other.nest):
             return False
         return self.planes == other.planes
+
+
+def build_nest(cfg: SeqConfig, dcg_y: np.ndarray, nest_x: int, nest_y: int) -> np.ndarray:
+    """Nest from the luma effective-DC grid (FORMAT.md §6.1), modular wrap."""
+    nh, nw = cfg.nest_shape
+    bh, bw = dcg_y.shape
+    ys = (nest_y + np.arange(nh)) % bh
+    xs = (nest_x + np.arange(nw)) % bw
+    return dcg_y[np.ix_(ys, xs)].astype(np.uint8)

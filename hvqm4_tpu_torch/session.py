@@ -35,8 +35,12 @@ class DecodedFrame:
     ftype: str
     planes: list  # [Y, U, V] (H, W) u8 tensors on the session's device
 
+    def to_numpy(self) -> list:
+        """[Y, U, V] as numpy arrays on the host."""
+        return [p.cpu().numpy() for p in self.planes]
+
     def yuv_bytes(self) -> bytes:
-        return b"".join(p.cpu().numpy().tobytes() for p in self.planes)
+        return b"".join(p.tobytes() for p in self.to_numpy())
 
 
 class DecoderSession:

@@ -5,6 +5,7 @@ refusal of the reference refused with the same single line.
 
 import json
 import os
+import re
 import struct
 import subprocess
 import sys
@@ -301,6 +302,239 @@ def test_usage_lists_every_subcommand(capsys):
         cli.main(["--help"])
     usage = capsys.readouterr().out
     for sub in ("info", "decode", "hash", "verify", "audio", "stats",
-                "remote"):
+                "remote", "encode", "transcode"):
         assert sub in usage and f"cli {sub}" in cli.__doc__
-    assert "encode" not in usage          # waits for the encoder side
+    with pytest.raises(SystemExit):
+        jcli.main(["--help"])
+    jusage = capsys.readouterr().out
+    subs = next(g for g in re.findall(r"\{([^}]*)\}", jusage) if "info" in g)
+    assert len(subs.split(",")) == 9
+    assert all(sub in usage for sub in subs.split(","))
+
+
+# -- encode and transcode -----------------------------------------------------
+
+def _raw_yuv(n: int = 3) -> bytes:
+    """n frames of 32x16 4:2:0: a noisy ramp over flat chroma."""
+    rng = np.random.default_rng(0)
+    raw = b""
+    for _ in range(n):
+        y = np.clip(np.linspace(30, 220, 16 * 32).reshape(16, 32)
+                    + rng.normal(0, 2, (16, 32)), 0, 255).astype(np.uint8)
+        raw += y.tobytes() + np.full((8, 16), 120, np.uint8).tobytes() \
+            + np.full((8, 16), 130, np.uint8).tobytes()
+    return raw
+
+
+def _wav(path, width: int = 2):
+    import wave
+
+    t = np.arange(3200)[:, None]
+    pcm = (6000 * np.sin(0.03 * t + np.arange(2)[None, :])).astype(np.int16)
+    with wave.open(str(path), "wb") as w:
+        w.setnchannels(2)
+        w.setsampwidth(width)
+        w.setframerate(32000)
+        w.writeframes(pcm.astype("<i2").tobytes() if width == 2
+                      else (pcm >> 8).astype(np.int8).tobytes())
+    return path
+
+
+def encode_both(capsys, tmp_path, argv):
+    """Both CLIs' `encode` (or `transcode`) with their own output path:
+    [(rc, stderr with the path taken out, output bytes or None)]."""
+    out = []
+    for main, name in ((jcli.main, "j.h4m"), (cli.main, "t.h4m")):
+        path = tmp_path / name
+        path.unlink(missing_ok=True)
+        capsys.readouterr()
+        rc = main([a if a != "OUT" else str(path) for a in argv])
+        err = capsys.readouterr().err.replace(str(path), "OUT")
+        out.append((rc, err, path.read_bytes() if path.exists() else None))
+    return out
+
+
+@pytest.mark.parametrize("flags", [
+    ["--gops", "IPP"], [], ["--quality", "1.5", "--slices", "2",
+                            "--dc-shift", "1", "--psy", "0.5"],
+    ["--sampling", "420", "--gops", "IBP"],
+    ["--target-kb", "0.5"], ["--target-kb", "0.5", "--single-pass"],
+    ["--audio", "WAV"]])
+def test_encode_raw_yuv_matches_jax(tmp_path, capsys, flags):
+    src = tmp_path / "in.yuv"
+    src.write_bytes(_raw_yuv())
+    wav = str(_wav(tmp_path / "a.wav"))
+    flags = [wav if f == "WAV" else f for f in flags]
+    (jrc, jerr, jout), (rc, err, out) = encode_both(
+        capsys, tmp_path, ["encode", str(src), "OUT", "--width", "32",
+                           "--height", "16", *flags])
+    assert jrc == rc == 0 and out == jout and err == jerr
+    assert err.splitlines()[-1] == \
+        f"encoded 3 frames -> OUT ({len(out)} bytes)"
+    info = Demuxer(out).info
+    assert info.cfg == SeqConfig(32, 16) and info.video_frames == 3
+    assert info.audio_channels == (2 if "--audio" in flags else 0)
+    assert ("rate control: lambda=" in err) == ("--target-kb" in flags)
+
+
+def test_encode_from_y4m_matches_jax(tmp_path, capsys):
+    """decode --y4m -> encode: the stream describes itself, so encode needs
+    no flags, and the clip keeps the source's frame rate."""
+    src = tmp_path / "src.h4m"
+    src.write_bytes(make_clip(CFG, ["IPP"], seed=60, usec_per_frame=40000))
+    y4m = tmp_path / "v.y4m"
+    assert cli.main(["decode", str(src), str(y4m), *PORT_DEV, "--y4m"]) == 0
+    assert y4m.read_bytes().startswith(b"YUV4MPEG2 W64 H48 F25:1 ")
+    (jrc, jerr, jout), (rc, err, out) = encode_both(
+        capsys, tmp_path, ["encode", str(y4m), "OUT", "--quality", "0.5"])
+    assert jrc == rc == 0 and out == jout and err == jerr
+    info = Demuxer(out).info
+    assert (info.cfg.width, info.cfg.height) == (64, 48)
+    assert info.usec_per_frame == 40000    # from the F tag, not a default
+    # matching explicit geometry is accepted
+    res = encode_both(capsys, tmp_path, [
+        "encode", str(y4m), "OUT", "--quality", "0.5", "--width", "64",
+        "--height", "48", "--sampling", "420"])
+    assert [r[0] for r in res] == [0, 0] and res[0][2] == res[1][2] == out
+
+
+def _y4m(header: bytes, frames: int = 1, size: int = 32 * 16 * 3 // 2):
+    return header + b"\n" + (b"FRAME\n" + b"\x80" * size) * frames
+
+
+@pytest.mark.parametrize("name,contains", [
+    ("no_geometry", "--width/--height are required"),
+    ("not_a_multiple", "input not a multiple of 2304 bytes"),
+    ("y4m_size_conflict", "conflict with the y4m header (32x16)"),
+    ("y4m_sampling_conflict", "--sampling conflicts with the y4m header"),
+    ("y4m_bad_chroma", "unsupported y4m chroma C422"),
+    ("y4m_bad_field", "bad y4m header field 'Wxx'"),
+    ("y4m_no_size", "y4m header missing/invalid W/H/F"),
+    ("y4m_truncated_header", "truncated y4m header"),
+    ("y4m_truncated_frame", "truncated y4m frame payload"),
+    ("y4m_bad_marker", "bad y4m FRAME marker at byte"),
+    ("wav_not_16_bit", "audio must be 16-bit PCM WAV"),
+    ("target_kb_with_audio", "--target-kb does not support --audio"),
+    ("bad_slices", "slice count must be in [1, 2]"),
+    ("bad_gops", "gop pattern length != frame count"),
+    ("missing_input", "No such file"),
+])
+def test_encode_refusals_match_jax(tmp_path, capsys, name, contains):
+    raw = tmp_path / "in.yuv"
+    raw.write_bytes(_raw_yuv(2))
+    y4m = tmp_path / "in.y4m"
+    y4m.write_bytes(_y4m(b"YUV4MPEG2 W32 H16 F25:1 C420jpeg"))
+    geo = ["--width", "32", "--height", "16"]
+
+    def bad_y4m(data: bytes):
+        y4m.write_bytes(data)
+        return [str(y4m), "OUT"]
+
+    argv = {
+        "no_geometry": lambda: [str(raw), "OUT"],
+        "not_a_multiple": lambda: [str(raw), "OUT", "--width", "32",
+                                   "--height", "48"],
+        "y4m_size_conflict": lambda: [str(y4m), "OUT", "--width", "128",
+                                      "--height", "96"],
+        "y4m_sampling_conflict": lambda: [str(y4m), "OUT", "--sampling",
+                                          "444"],
+        "y4m_bad_chroma": lambda: bad_y4m(
+            _y4m(b"YUV4MPEG2 W32 H16 F25:1 C422")),
+        "y4m_bad_field": lambda: bad_y4m(_y4m(b"YUV4MPEG2 Wxx H16")),
+        "y4m_no_size": lambda: bad_y4m(_y4m(b"YUV4MPEG2 H16 F25:1")),
+        "y4m_truncated_header": lambda: bad_y4m(b"YUV4MPEG2 W32 H16"),
+        "y4m_truncated_frame": lambda: bad_y4m(
+            _y4m(b"YUV4MPEG2 W32 H16 F25:1")[:-5]),
+        "y4m_bad_marker": lambda: bad_y4m(
+            _y4m(b"YUV4MPEG2 W32 H16 F25:1") + b"FRUME\n"),
+        "wav_not_16_bit": lambda: [str(raw), "OUT", *geo, "--audio",
+                                   str(_wav(tmp_path / "a8.wav", width=1))],
+        "target_kb_with_audio": lambda: [
+            str(raw), "OUT", *geo, "--target-kb", "1", "--audio",
+            str(_wav(tmp_path / "a.wav"))],
+        "bad_slices": lambda: [str(raw), "OUT", *geo, "--slices", "3"],
+        "bad_gops": lambda: [str(raw), "OUT", *geo, "--gops", "IPP"],
+        "missing_input": lambda: [str(tmp_path / "nope.yuv"), "OUT", *geo],
+    }[name]()
+    (jrc, jerr, jout), (rc, err, out) = encode_both(capsys, tmp_path,
+                                                    ["encode", *argv])
+    assert_same_refusal([(jrc, "", jerr), (rc, "", err)], contains)
+    assert out is None and jout is None
+
+
+def test_encode_takes_no_device(capsys, tmp_path):
+    for dev in ("cuda", "cpu"):
+        with pytest.raises(SystemExit) as e:
+            cli.main(["encode", "in.yuv", str(tmp_path / "o.h4m"), "--width",
+                      "32", "--height", "16", "--device", dev])
+        assert e.value.code == 2
+        assert "unrecognized arguments: --device" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("gops,seed,usec,audio,flags", [
+    (["IPB"], 55, 33366, 2, ["--quality", "2"]),
+    (["IPP"], 61, 40000, 0, ["--quality", "8"]),
+    (["IPB", "IP"], 62, 33366, 1, ["--gops", "IBP,IP", "--slices", "2",
+                                   "--dc-shift", "1"]),
+    (["IPPPP"], 56, 33366, 0, ["--target-kb", "3"]),
+])
+def test_transcode_matches_jax(tmp_path, capsys, oracle_bin, gops, seed, usec,
+                               audio, flags):
+    """`transcode --device cpu` against the JAX CLI's `--backend numpy`:
+    the same bytes and the same report; geometry, frame count, frame rate
+    and audio survive; the result decodes identically by the oracle."""
+    src = tmp_path / "s.h4m"
+    src.write_bytes(make_clip(CFG, gops, seed=seed, usec_per_frame=usec,
+                              audio_channels=audio))
+    results = []
+    for extra, (main, name) in zip((JAX_DEV, PORT_DEV), (
+            (jcli.main, "j.h4m"), (cli.main, "t.h4m"))):
+        capsys.readouterr()
+        rc = main(["transcode", str(src), str(tmp_path / name), *flags,
+                   *extra])
+        results.append((rc, capsys.readouterr().err,
+                        (tmp_path / name).read_bytes()))
+    (jrc, jerr, jout), (rc, err, out) = results
+    assert jrc == rc == 0 and out == jout and err == jerr
+    n = sum(map(len, gops))
+    assert f"transcoded {n} frames: {src.stat().st_size} -> {len(out)}" in err
+    info = Demuxer(out).info
+    assert info.cfg == CFG and info.video_frames == n
+    assert info.usec_per_frame == usec and info.audio_channels == audio
+    assert ("rate control: lambda=" in err) == ("--target-kb" in flags)
+    from hvqm4_tpu_torch.refdec import decode_clip
+
+    from .conftest import run_oracle
+
+    assert run_oracle(oracle_bin, out, tmp_path) == b"".join(
+        p.tobytes() for planes in decode_clip(CFG, out) for p in planes)
+
+
+def test_transcode_target_kb_with_audio_is_refused(tmp_path, capsys,
+                                                   clip_path):
+    res = []
+    for main, extra in ((jcli.main, JAX_DEV), (cli.main, PORT_DEV)):
+        capsys.readouterr()
+        rc = main(["transcode", str(clip_path), str(tmp_path / "o.h4m"),
+                   "--target-kb", "3", *extra])
+        res.append((rc, "", capsys.readouterr().err))
+    assert_same_refusal(res, "--target-kb transcode is video-only")
+    assert not (tmp_path / "o.h4m").exists()
+
+
+def test_transcode_without_cuda_fails_with_one_line(tmp_path, capsys,
+                                                    clip_path):
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device works")
+    out = tmp_path / "o.h4m"
+    assert cli.main(["transcode", str(clip_path), str(out)]) == 1
+    line = error_line(capsys.readouterr().err, "hvqm4_tpu_torch")
+    assert "CUDA is not available" in line and not out.exists()
+    assert cli.main(["transcode", str(clip_path), str(out), "--device",
+                     "cuda:0"]) == 1
+    # the reference's --backend is not an option of the port
+    with pytest.raises(SystemExit):
+        cli.main(["transcode", str(clip_path), str(out), "--backend",
+                  "numpy"])

@@ -1,8 +1,9 @@
 """On the card: the CUDA kernels against their plain versions, the session
 and the arena decoder on `cuda` against the C oracle and the CPU, the
 decode service on `cuda`, unbatched and batched, against the same service
-on the CPU, and the loader and the embedding pipeline on `cuda` against
-the same classes on the CPU.
+on the CPU, the loader and the embedding pipeline on `cuda` against the
+same classes on the CPU, and the encoder's full-nest search on `cuda`
+against the same search on the CPU.
 
 Every test here needs a CUDA card and skips without one. The file imports
 no JAX, so it also runs where JAX is not installed; tests/conftest.py
@@ -20,10 +21,12 @@ import pytest
 import torch
 
 from chip_smoke import border_vectors, csc_planes, random_plan
-from hvqm4_tpu_torch import serve
+from hvqm4_tpu_torch import refdec, serve
 from hvqm4_tpu_torch.convert import plan_to_torch
 from hvqm4_tpu_torch.config import SeqConfig
 from hvqm4_tpu_torch.data import FrameBatchLoader
+from hvqm4_tpu_torch.encode import VideoEncoder
+from hvqm4_tpu_torch.encode_tpu import NestSearch
 from hvqm4_tpu_torch.kernels import _build
 from hvqm4_tpu_torch.kernels.csc import (YUV_TO_RGB, _vector_ok, yuv_to_rgb,
                                          yuv_to_rgb_plain)
@@ -437,3 +440,72 @@ def test_cuda_pipeline_matches_cpu_pipeline(cuda, pipelined):
         assert (cos >= 0.9999).all()
     # the caller's grad mode is its own
     assert torch.is_grad_enabled() and not torch.is_inference_mode_enabled()
+
+
+def _search_inputs(b: int, amp: int = 300):
+    """A smooth, tie-rich nest and `b` residuals in [-amp, amp), the first
+    all zero."""
+    nest = ((np.arange(38)[:, None] * 3 + np.arange(70)[None, :] * 2)
+            % 256).astype(np.uint8)
+    resid = np.random.default_rng(b).integers(-amp, amp, (b, 16))
+    resid[0] = 0
+    return nest, resid.astype(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 19200])
+def test_cuda_nest_search_matches_cpu(cuda, b):
+    """`NestSearch.best` on the card against the same torch code on the
+    CPU, at one residual and at the luma blocks of a 640x480 frame: the
+    same descriptors, terms and scales."""
+    nest, resid = _search_inputs(b)
+    got = NestSearch(nest, cuda).best(resid)
+    want = NestSearch(nest, "cpu").best(resid)
+    assert all(np.array_equal(g, w) for g, w in zip(got, want))
+    assert got[2][0] == 0 and not got[1][0].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tf32", [True, False])
+def test_cuda_nest_search_ignores_tf32(cuda, tf32):
+    """With TF32 allowed for f32 products, by both of PyTorch's globals,
+    the search still picks what the CPU picks: its product is float64.
+    TF32 keeps 11 significant bits, so the residuals reach 4,000 (a second
+    matching-pursuit round reaches 2,300): an f32 product of the same
+    inputs under the same flag is then not exact, which shows that the
+    flag was live; every dot still stays below 2^24."""
+    nest, resid = _search_inputs(4096, amp=4000)
+    want = NestSearch(nest, "cpu").best(resid)
+    flag = torch.backends.cuda.matmul.allow_tf32
+    precision = torch.get_float32_matmul_precision()
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.set_float32_matmul_precision("high" if tf32 else "highest")
+    try:
+        search = NestSearch(nest, cuda)
+        got = search.best(resid)
+        r = torch.from_numpy(resid.astype(np.float32)).to(cuda)
+        c = torch.from_numpy(search.C.astype(np.float32)).to(cuda)
+        f32_exact = torch.equal((r @ c.T).double(), r.double() @ c.double().T)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flag
+        torch.set_float32_matmul_precision(precision)
+    assert all(np.array_equal(g, w) for g, w in zip(got, want))
+    assert f32_exact == (not tf32)
+
+
+@pytest.mark.cuda
+def test_cuda_encoder_search_matches_cpu_and_decodes(cuda):
+    """An encode with the search on the card gives the bytes of the same
+    encode with the search on the CPU, and the clip decodes through the
+    session on the card to the golden decoder's frames."""
+    cfg = SeqConfig(64, 48)
+    rng = np.random.default_rng(8)
+    frames = [[rng.integers(0, 256, s, dtype=np.uint8)
+               for s in cfg.plane_shapes] for _ in range(3)]
+    clip = VideoEncoder(cfg, lambda_bits=2.0, use_tpu_search=True,
+                        device=cuda).encode(frames, ["IPB"])
+    assert clip == VideoEncoder(cfg, lambda_bits=2.0, use_tpu_search=True,
+                                device="cpu").encode(frames, ["IPB"])
+    got = [f.yuv_bytes() for f in DecoderSession(cfg, cuda).decode_clip(clip)]
+    assert got == [b"".join(p.tobytes() for p in planes)
+                   for planes in refdec.decode_clip(cfg, clip)]

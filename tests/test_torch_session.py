@@ -284,6 +284,20 @@ assert tuple(emb.shape) == (2, 32) and valid == [True, True]
 rgb_batch, valid = next(iter(FrameBatchLoader(cfg, [clip, clip],
                                               device="cpu")))
 assert tuple(rgb_batch.shape) == (2, 16, 32, 3) and valid == [True, True]
+import os
+from hvqm4_tpu_torch import VideoEncoder, cli, encode_to_size
+for name in ("bitio", "gop", "encode", "encode_tpu"):
+    assert "hvqm4_tpu_torch." + name in mods, name
+src = [f.to_numpy() for f in
+       DecoderSession(cfg, "cpu").decode_clip_display_order(clip)]
+enc = VideoEncoder(cfg, use_tpu_search=True, device="cpu").encode(src, ["IPB"])
+assert len(list(DecoderSession(cfg, "cpu").decode_clip(enc))) == 3
+assert callable(encode_to_size)
+out = os.path.join(os.path.dirname(sys.argv[1]), "t.h4m")
+assert cli.main(["transcode", sys.argv[1], out, "--device", "cpu",
+                 "--gops", "IPP"]) == 0
+tinfo = Demuxer(open(out, "rb").read()).info
+assert tinfo.cfg == cfg and tinfo.video_frames == 3
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "hvqm4_tpu"))
 assert loaded == ["hvqm4_tpu", "jax"], loaded   # only the blockers
@@ -295,7 +309,8 @@ def test_port_never_imports_jax(tmp_path):
     """Every module of the port and `chip_smoke` import, and a clip
     decodes through the session, the lock-step step, the arena decoder
     (pipelined, K=2), the server, unbatched and batched, one pipeline step
-    and one loader batch, with both JAX and the JAX package blocked."""
+    and one loader batch, is encoded with the full-nest search on the CPU
+    and transcoded, with both JAX and the JAX package blocked."""
     clip = tmp_path / "c.h4m"
     clip.write_bytes(make_clip(SeqConfig(32, 16), ["IPB"], seed=77))
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -304,4 +319,4 @@ def test_port_never_imports_jax(tmp_path):
     assert res.returncode == 0, res.stderr[-2000:]
     ok, n_mods, n_frames, n_rgb = res.stdout.split()
     assert (ok, n_frames, n_rgb) == ("ok", "3", "3")
-    assert int(n_mods) >= 24
+    assert int(n_mods) >= 28
