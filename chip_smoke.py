@@ -68,6 +68,23 @@ Phases, in order; any failure exits non-zero before the result line:
    P frame must launch `intra_synth_noacc`, `intra_synth_acc` and
    `inter_combine` 9 times each (3 planes x 3 decodes) and `yuv_to_rgb`
    never. Then the search's and the encoder's times.
+5e. training: the same 8 streams through `FrameBatchLoader(image_size=224)`
+   into the default ViT and `examples/train_vit_torch.py`'s mean-RGB probe,
+   `torch.optim.Adam(1e-3)`, two epochs of 28 steps. Every loss must be
+   finite and epoch 2's mean below the first step's loss; at step 2 every
+   ViT leaf but the never-added `b2` must have a non-zero gradient (`b2`'s
+   is None). The first three batches, moved to the CPU, go through
+   `train_step` there: each from the card's weights and Adam state before
+   that step, losses within 2e-2 relative and parameters within
+   `PARAM_BOUND`; and all three chained from the start, parameters within
+   `PARAM_BOUND`. `intra_synth_acc` and `inter_combine` must launch 3 x
+   the decode steps, `yuv_to_rgb` once a step, `intra_synth_noacc` never. Then, after the counts: epoch 2's train_fps
+   and its ms a step split into loader, forward, backward and opt.step by
+   CUDA events; the launches of one train step from the profiler and the
+   host synchronisations it makes unasked; the device's busy share over a
+   third, profiled epoch; embed_fps of the same streams. Last the soak:
+   `scripts/soak_device_torch.py`'s cases of `SOAK_SEEDS` on the card, each
+   stream equal to the oracle's bytes.
 6. serve: the port's `DecodeServer` on cuda, on a thread, answers both
    clips over TCP in YUV (FNV-1a == `oracle --hash`), RGB (== the integer
    formula on the oracle's frames) and EMBED (28 finite 384-vectors; two
@@ -81,7 +98,8 @@ Phases, in order; any failure exits non-zero before the result line:
    requests, and `yuv_to_rgb` launched by the batch's RGB replies. Every
    kernel, `yuv_to_rgb` included, must have launched during this phase.
    Then request latencies and the ViT's time per frame.
-7. times: kernel and plain times (CUDA events, 3 warm-ups, median of 20;
+7. times (after a line of the card's SM and memory clocks and power draw):
+   kernel and plain times (CUDA events, 3 warm-ups, median of 20;
    the profiler's device time per call), the decode kernels at both
    640x480 grids with N = 1, 8 and 32, each beside its bound: the bytes
    this data needs (`intra_bytes`, `inter_bytes`) over 3.35 TB/s;
@@ -102,11 +120,10 @@ Phases, in order; any failure exits non-zero before the result line:
    over one pipeline run.
 
 `launches` in the kernels line is the sum of the counted phases 4-5, 5b,
-5c, 5d and 6; its times are the luma grid's (480x640 for `yuv_to_rgb`) at N=8.
-Before
-the last lines the script fails if any module of JAX or of `hvqm4_tpu` was
-imported. The line before the last is a JSON object of the kernels; the
-last line is
+5c, 5d, 5e and 6; its times are the luma grid's (480x640 for `yuv_to_rgb`)
+at N=8. Before the last lines the script fails if any module of JAX or of
+`hvqm4_tpu` was imported, and prints its own seconds end to end. The line
+before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -1393,6 +1410,211 @@ def phase_encoder(dev, cfg, clips: dict, oracle: Path, kernels: list,
     return launches
 
 
+CPU_STEPS = 3  # the first steps, replayed on the CPU from the same weights
+PARAM_BOUND = 1.6e-2  # max abs, tests/test_torch_train.py's Adam bound
+SOAK_SEEDS = (5000, 6)  # scripts/soak_device_torch.py: base seed, cases
+
+
+def phase_train(dev, cfg, clips: dict, kernels: list, tag: str) -> tuple:
+    """Phase 5e: the training path on the card. The default ViT and the
+    mean-RGB probe of `examples/train_vit_torch.py` train for two epochs on
+    the 8 streams through `FrameBatchLoader(image_size=224)`; the first
+    steps are replayed on the CPU; then, after the counts were read, the
+    times and the soak. Returns (the launch counts of the two epochs, the
+    decode steps they ran)."""
+    import torch
+
+    from examples.train_vit_torch import (loss_fn, make_optimizer,
+                                          make_probe, train_step, weight_of)
+    from hvqm4_tpu_torch.data import FrameBatchLoader
+    from hvqm4_tpu_torch.models.vit import ViTConfig
+    from hvqm4_tpu_torch.pipeline import VideoEmbedPipeline
+    from scripts.soak_device_torch import run as soak
+
+    vcfg = ViTConfig()
+    streams = [clips[n] for n in STREAM_CLIPS]
+
+    def loader():
+        return FrameBatchLoader(cfg, streams, image_size=vcfg.image_size,
+                                device=dev)
+
+    def cpu_copy(model, head):  # a copy, also where dev is the CPU
+        return ({k: v.to("cpu", copy=True)
+                 for k, v in model.state_dict().items()},
+                *(t.detach().to("cpu", copy=True) for t in head))
+
+    def opt_copy(opt):  # Adam's state, moved to the CPU
+        sd = opt.state_dict()
+        return {"param_groups": copy.deepcopy(sd["param_groups"]),
+                "state": {i: {k: v.to("cpu", copy=True) for k, v in st.items()}
+                          for i, st in sd["state"].items()}}
+
+    model, head = make_probe(vcfg, dev, seed=0)
+    opt = make_optimizer(model, head)
+
+    # epoch 1: the first batches, and the weights and Adam's state before
+    # and after each of their steps, kept for the CPU; the gradients of
+    # step 2 (step 1 trains only the zero head)
+    losses, batches, before, after = [], [], [], []
+    for t, (images, valid) in enumerate(loader()):
+        weight = weight_of(valid, dev)
+        if t < CPU_STEPS:
+            batches.append((images.cpu(), weight.cpu()))
+            before.append((cpu_copy(model, head), opt_copy(opt)))
+        losses.append(train_step(model, head, opt, images, weight))
+        if t == 1:
+            dead = sorted(n for n, p in model.named_parameters()
+                          if p.grad is None or not bool(p.grad.any()))
+            b2 = sorted(n for n, _p in model.named_parameters()
+                        if n.endswith(".b2"))
+            if dead != b2 or any(model.get_parameter(n).grad is not None
+                                 for n in b2):
+                fail(f"train step 2: leaves without a gradient {dead}, want "
+                     f"exactly the never-added b2 {b2} (grad None)")
+        if t < CPU_STEPS:
+            after.append(cpu_copy(model, head))
+    steps1 = len(losses)
+
+    # epoch 2, timed: the host clock over the epoch, CUDA events between
+    # the loader, forward, backward and opt.step of every step
+    def event():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    spans, frames, it = [], 0, iter(loader())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while True:
+        marks = [event()]
+        batch = next(it, None)
+        if batch is None:
+            break
+        images, valid = batch
+        weight = weight_of(valid, dev)
+        marks.append(event())
+        opt.zero_grad(set_to_none=True)  # what train_step does, timed apart
+        loss = loss_fn(model, *head, images, weight)
+        marks.append(event())
+        loss.backward()
+        marks.append(event())
+        opt.step()
+        marks.append(event())
+        losses.append(loss.detach())
+        spans.append(marks)
+        frames += sum(valid)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.symbol: k.launches for k in kernels}
+    steps = steps1 + len(spans)
+
+    hist = torch.stack(losses).cpu()
+    first, second = float(hist[0]), float(hist[steps1:].mean())
+    if not bool(torch.isfinite(hist).all()):
+        fail(f"train: a loss is not finite: {hist.tolist()}")
+    if not second < first:
+        fail(f"train: epoch 2's mean loss {second} is not below the first "
+             f"step's {first}")
+    print(f"train on {dev}: default ViT ({vcfg.image_size}x"
+          f"{vcfg.image_size}, patch {vcfg.patch_size}, dim {vcfg.dim}, "
+          f"depth {vcfg.depth}, {vcfg.heads} heads) + mean-RGB probe, Adam "
+          f"1e-3, {N_STREAMS} streams, 2 epochs of {steps1} and "
+          f"{len(spans)} steps: every loss finite, first {first:.6f}, epoch "
+          f"2 mean {second:.6f}, last {float(hist[-1]):.6f}; step 2 gave "
+          f"every ViT leaf but the never-added b2 a non-zero gradient")
+
+    # the first batches through train_step on the CPU: each step from the
+    # card's weights and Adam state before it, then all of them from the
+    # start. Adam's first steps move an element by about lr whatever the
+    # size of its gradient, so where a near-zero gradient's sign differs
+    # the runs part by 2 lr an element and step; chained, that moves the
+    # ViT and the later losses, so the loss bound holds step by step.
+    def cpu_steps(state, steps):
+        cpu_model, cpu_head = make_probe(vcfg, "cpu", params=state[0])
+        cpu_opt = make_optimizer(cpu_model, cpu_head)
+        cpu_opt.load_state_dict(state[1])
+        return ([float(train_step(cpu_model, cpu_head, cpu_opt, im, w))
+                 for im, w in steps], cpu_copy(cpu_model, cpu_head))
+
+    def param_diff(a, b):
+        return max(float((x.float() - y.float()).abs().max())
+                   for x, y in zip([*a[0].values(), *a[1:]],
+                                   [*b[0].values(), *b[1:]]))
+
+    card = [float(x) for x in hist[:CPU_STEPS]]
+    rel, diff = [], []
+    for t in range(CPU_STEPS):
+        (cpu_loss,), got = cpu_steps(before[t], batches[t:t + 1])
+        rel.append(abs(card[t] - cpu_loss) / abs(cpu_loss))
+        diff.append(param_diff(after[t], got))
+    chained, got = cpu_steps(before[0], batches)
+    chained_diff = param_diff(after[-1], got)
+    print(f"train card vs CPU, {CPU_STEPS} steps on the same batches: "
+          f"losses on the card {[round(x, 6) for x in card]}; each step from "
+          f"the card's weights and Adam state: losses relative "
+          f"{', '.join(f'{x:.3e}' for x in rel)} (bound 2e-2), parameters "
+          f"max abs {', '.join(f'{x:.3e}' for x in diff)} (bound "
+          f"{PARAM_BOUND}); chained from the same start: losses on the CPU "
+          f"{[round(x, 6) for x in chained]}, parameters max abs "
+          f"{chained_diff:.3e} (bound {PARAM_BOUND})")
+    if not (max(rel) <= 2e-2 and max(diff + [chained_diff]) <= PARAM_BOUND):
+        fail(f"train: the card and the CPU differ (losses {rel}, "
+             f"parameters {diff}, chained {chained_diff})")
+
+    # times (after the counts were read)
+    parts = [[m[i].elapsed_time(m[i + 1]) for m in spans] for i in range(4)]
+    split = ", ".join(f"{what} {statistics.mean(p):.3f}" for what, p in zip(
+        ("loader", "forward", "backward", "opt.step"), parts))
+    print(f"time train epoch 2 {N_STREAMS} streams: {frames} frames in "
+          f"{wall:.4f} s = {frames / wall:.1f} train_fps, "
+          f"{1e3 * wall / len(spans):.3f} ms a step; CUDA events, mean ms a "
+          f"step: {split} [{tag}]")
+    weight = weight_of(valid, dev)  # with images: epoch 2's last batch
+    res = profile(lambda: train_step(model, head, opt, images, weight))
+    if res is None:
+        print(f"profile train step: launches not measured (the profiler "
+              f"recorded no CUDA activity) [{tag}]")
+    else:
+        rows = res[1]
+        copies = sum(c for _us, c, key in rows
+                     if "memcpy" in key.lower() or "memset" in key.lower())
+        total = sum(c for _us, c, _key in rows)
+        print(f"profile train step (batch {N_STREAMS}): {total} device "
+              f"launches, {total - copies} kernels and {copies} copies or "
+              f"fills; device {sum(r[0] for r in rows) / 1e3:.3f} ms [{tag}]")
+    syncs = implicit_syncs(lambda: train_step(model, head, opt, images,
+                                              weight_of(valid, dev)))
+    print(f"train: host synchronisations nobody asked for in one train step "
+          f"(torch's sync debug mode): {syncs}")
+
+    def epoch():
+        for images, valid in loader():
+            train_step(model, head, opt, images, weight_of(valid, dev))
+
+    device_profile(epoch, f"train epoch 3 (as epoch 2, {N_STREAMS} streams, "
+                   f"under the profiler)", tag)
+
+    def embed_run():
+        pipe = VideoEmbedPipeline(cfg, streams, vcfg, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = sum(sum(valid) for _e, _m, valid in pipe.run())
+        torch.cuda.synchronize()
+        return n, time.perf_counter() - t0
+
+    embed_run()  # warm
+    n, embed_s = embed_run()
+    print(f"time embed beside train {N_STREAMS} streams: embed_fps "
+          f"{n / embed_s:.1f} (VideoEmbedPipeline, same ViT config, "
+          f"inference) against train_fps {frames / wall:.1f} [{tag}]")
+
+    base, cases = SOAK_SEEDS
+    descs = soak(cases, base, dev, log=lambda s: None)
+    for d in descs:
+        print(f"soak on {dev}: {d}: every stream == the oracle's bytes")
+    return launches, steps
+
+
 def phase_serve(dev, cfg, clips: dict, oracle: Path, kernels: list,
                 tag: str) -> dict:
     """Phase 6: the port's decode service on the card. Checks every reply,
@@ -1599,7 +1821,9 @@ def batched_serve(dev, clips: dict, replies: dict, tag: str) -> None:
 def profile(fn):
     """One call of `fn` under torch.profiler: (window in us, rows of
     (device us, count, kernel name)), or None when the profiler recorded
-    no CUDA activity."""
+    no CUDA activity. User annotations (`Optimizer.step#Adam.step`) span
+    kernels on the device's timeline and are left out, so that nothing is
+    counted twice."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
@@ -1614,7 +1838,8 @@ def profile(fn):
     rows = [(e.self_device_time_total, e.count, e.key)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
+            and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)]
     return (wall_us, rows) if rows else None
 
 
@@ -1653,6 +1878,7 @@ def fmt_us(us) -> str:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not (REPO / "hvqm4_tpu_torch").is_dir():
         fail("hvqm4_tpu_torch/ is not beside this script: run it from a "
              "checkout of the repository")
@@ -1754,6 +1980,20 @@ def main() -> int:
             fail(f"{sym} launched {encoder_launches[sym]} times on the "
                  f"encoder side, want {n}")
 
+    # phase 5e: the training path on the arena decoder, counted
+    for k in kernels:
+        k.launches = 0
+    train_launches, train_steps = phase_train(dev, cfg, clips, kernels, tag)
+    print(f"launches on the training path (phase 5e, {train_steps} steps): "
+          f"{train_launches}")
+    for sym, n in (("hvqm4_yuv_to_rgb", train_steps),
+                   ("hvqm4_intra_synth_acc", 3 * train_steps),
+                   ("hvqm4_inter_combine", 3 * train_steps),
+                   ("hvqm4_intra_synth_noacc", 0)):
+        if train_launches[sym] != n:
+            fail(f"{sym} launched {train_launches[sym]} times on the "
+                 f"training path, want {n}")
+
     # phase 6: the decode service, counted
     for k in kernels:
         k.launches = 0
@@ -1763,7 +2003,11 @@ def main() -> int:
         if count == 0:
             fail(f"{sym} never launched on the serve path")
 
-    # phase 7: times
+    # phase 7: times, with the clocks the card runs at as they start
+    print("clocks at phase 7 (sm, mem, power draw): " + subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,power.draw",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip())
     times = phase_times(dev, cfg, clips, tag)
 
     sources = {"hvqm4_intra_synth_noacc": "intra.cu",
@@ -1783,6 +2027,7 @@ def main() -> int:
                                   + arena_launches[k.symbol]
                                   + consumer_launches[k.symbol]
                                   + encoder_launches[k.symbol]
+                                  + train_launches[k.symbol]
                                   + serve_launches[k.symbol]),
                      "max_abs_err": err[name], "ms": t["ms"],
                      "plain_ms": t["plain_ms"],
@@ -1794,6 +2039,8 @@ def main() -> int:
                     if m.split(".")[0] in ("hvqm4_tpu", "jax", "jaxlib"))
     if leaked:
         fail(f"modules of JAX or of the JAX package were imported: {leaked}")
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s end to end, "
+          f"the builds included [{tag}]")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,172 @@
+"""Training example on the port: `.h4m` corpus → decode on the card → ViT →
+`torch.optim.Adam`. The counterpart of `examples/train_vit.py`, on one
+device; it imports only `hvqm4_tpu_torch`.
+
+The framework as a training input pipeline: `FrameBatchLoader` decodes N
+streams in lock-step on the card, converts them to RGB and resizes them
+there, and the batch feeds the ViT without visiting the host. The objective
+is the JAX example's: predict each frame's mean RGB from the pooled
+embedding through a linear head, which drives real gradients through the
+whole decode → RGB → resize → ViT stack, and the loss must fall.
+
+    python examples/train_vit_torch.py [--width 64 --height 48 --streams 8
+                                        --epochs 3] [--clip PATH ...]
+                                       [--device cuda|cpu]
+
+Without `--clip` the clips are encoded here by the port's `VideoEncoder`
+from seeded synthetic frames, with the JAX example's GOP patterns. `--device`
+defaults to `cuda`; without a card the script fails. `--device cpu` runs
+the plain PyTorch paths on purpose. The JAX example's `--dp` and `--tp`
+(a data- and tensor-parallel mesh) wait for the port's multi-GPU slice and
+are not offered here.
+"""
+
+from __future__ import annotations
+
+import argparse
+import pathlib
+import sys
+
+import numpy as np
+import torch
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(REPO))
+
+from hvqm4_tpu_torch.config import SeqConfig  # noqa: E402
+from hvqm4_tpu_torch.container import Demuxer  # noqa: E402
+from hvqm4_tpu_torch.data import FrameBatchLoader  # noqa: E402
+from hvqm4_tpu_torch.encode import VideoEncoder  # noqa: E402
+from hvqm4_tpu_torch.models.vit import ViT, ViTConfig, init_vit  # noqa: E402
+
+GOPS = ["IPBPB", "IPP"]
+
+
+def loss_fn(model: ViT, head_w, head_b, images, weight):
+    """The JAX example's masked loss: the per-stream MSE of the predicted
+    mean RGB, weighted, over max(sum of the weights, 1)."""
+    emb = model(images)                                  # (N, dim)
+    pred = emb @ head_w + head_b
+    target = images.mean(dim=(1, 2))                     # (N, 3)
+    per = ((pred - target) ** 2).mean(dim=1)             # (N,)
+    return (per * weight).sum() / weight.sum().clamp(min=1.0)
+
+
+def train_step(model: ViT, head, opt, images, weight):
+    """One forward, backward and Adam step; returns the loss on the device
+    (reading it would wait for the card)."""
+    opt.zero_grad(set_to_none=True)
+    loss = loss_fn(model, *head, images, weight)
+    loss.backward()
+    opt.step()
+    return loss.detach()
+
+
+def make_probe(vcfg: ViTConfig, device, seed: int = 0, params=None):
+    """(the ViT with its parameters trainable, the head (w, b)). `params`
+    is what `convert.probe_params_to_torch` returns; None draws the ViT from
+    `seed` with `init_vit` and starts the head at zeros."""
+    if params is None:
+        model = init_vit(vcfg, torch.Generator().manual_seed(seed), device)
+        w = torch.zeros((vcfg.dim, 3), device=device)
+        b = torch.zeros((3,), device=device)
+    else:
+        sd, w, b = params
+        model = ViT(vcfg)
+        model.load_state_dict(sd)
+        model.to(device)
+        w, b = w.detach().clone().to(device), b.detach().clone().to(device)
+    model.requires_grad_(True)
+    return model, (w.requires_grad_(True), b.requires_grad_(True))
+
+
+def make_optimizer(model: ViT, head, lr: float = 1e-3):
+    """`optax.adam(lr)`'s defaults, over every parameter and the head."""
+    return torch.optim.Adam([*model.parameters(), *head], lr=lr,
+                            betas=(0.9, 0.999), eps=1e-8)
+
+
+def weight_of(valid: list, device) -> torch.Tensor:
+    """The loader's `valid` list as f32 loss weights on the device; the
+    upload does not wait for the card."""
+    return torch.tensor(valid, dtype=torch.float32).to(device,
+                                                        non_blocking=True)
+
+
+def train(cfg: SeqConfig, clips: list[bytes], vcfg: ViTConfig,
+          epochs: int = 3, lr: float = 1e-3, seed: int = 0, device="cuda",
+          params=None) -> list[float]:
+    """Train the mean-RGB probe; returns the per-step loss history. The
+    losses stay on the device until every step has been enqueued."""
+    model, head = make_probe(vcfg, device, seed, params)
+    opt = make_optimizer(model, head, lr)
+    losses = []
+    for _ in range(epochs):
+        for images, valid in FrameBatchLoader(
+                cfg, clips, image_size=vcfg.image_size, device=device):
+            losses.append(train_step(model, head, opt, images,
+                                     weight_of(valid, device)))
+    return torch.stack(losses).tolist()
+
+
+def synth_frames(cfg: SeqConfig, n: int, seed: int) -> list:
+    """`n` display-ordered [Y, U, V] u8 frames from `seed`: a drifting
+    sinusoid with noise, a moving bright square and flat chroma levels that
+    change with time, so the clips hold intra, inter and skipped blocks and
+    each frame has its own mean colour."""
+    rng = np.random.default_rng(seed)
+    h, w = cfg.plane_shapes[0]
+    ch, cw = cfg.plane_shapes[1]
+    yy, xx = np.mgrid[0:h, 0:w]
+    fx, fy = rng.uniform(0.04, 0.3, 2)
+    level = rng.uniform(60, 180)
+    side = max(min(h, w) // 4, 4)
+    vx, vy = rng.integers(1, 4, 2)
+    u0, v0 = rng.uniform(70, 190, 2)
+    frames = []
+    for t in range(n):
+        y = (level + 50 * np.sin(fx * xx + 0.4 * t) * np.cos(fy * yy)
+             + rng.normal(0, 4, (h, w)))
+        x0, y0 = (vx * t) % (w - side + 1), (vy * t) % (h - side + 1)
+        y[y0:y0 + side, x0:x0 + side] = 235
+        u = np.full((ch, cw), u0 + 6 * t)
+        v = np.full((ch, cw), v0 - 5 * t)
+        frames.append([np.clip(p, 0, 255).astype(np.uint8) for p in (y, u, v)])
+    return frames
+
+
+def make_clips(cfg: SeqConfig, n_streams: int, gops=GOPS) -> list[bytes]:
+    """One clip a stream, stream s encoded from `synth_frames` of seed s."""
+    n = sum(len(g) for g in gops)
+    return [VideoEncoder(cfg, seed=s).encode(synth_frames(cfg, n, s), gops)
+            for s in range(n_streams)]
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--width", type=int, default=64)
+    ap.add_argument("--height", type=int, default=48)
+    ap.add_argument("--streams", type=int, default=8)
+    ap.add_argument("--epochs", type=int, default=3)
+    ap.add_argument("--clip", action="append", default=[],
+                    help="an .h4m clip to train on (repeatable); replaces "
+                         "the encoded synthetic clips")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default: cuda)")
+    args = ap.parse_args()
+
+    if args.clip:
+        clips = [pathlib.Path(p).read_bytes() for p in args.clip]
+        cfg = Demuxer(clips[0]).info.cfg
+    else:
+        cfg = SeqConfig(args.width, args.height)
+        clips = make_clips(cfg, args.streams)
+    vcfg = ViTConfig(image_size=64, patch_size=8, dim=128, depth=2, heads=4)
+    losses = train(cfg, clips, vcfg, epochs=args.epochs, device=args.device)
+    print(f"steps={len(losses)} first_loss={losses[0]:.5f} "
+          f"last_loss={losses[-1]:.5f} (single device)")
+    return 0 if losses[-1] < losses[0] else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

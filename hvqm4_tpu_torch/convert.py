@@ -12,7 +12,8 @@ docstring) into tensors on an explicit device:
 A leading stream axis N is kept where the arrays have one.
 
 The one model on the decode path, the ViT, does have weights:
-`vit_params_to_torch` carries the JAX parameter pytree across.
+`vit_params_to_torch` carries the JAX parameter pytree across, and
+`probe_params_to_torch` the training example's ViT and head.
 
 `pack_meta`, `pack_desc` and `plane_plan_arrays` are the port's copies of
 the numpy helpers in `hvqm4_tpu/ops/device_core.py`; the tests hold the
@@ -161,3 +162,13 @@ def vit_params_to_torch(params_np: dict, device) -> dict:
     for i, blk in enumerate(params_np["blocks"]):
         sd.update(flat(f"blocks.{i}.", blk))
     return sd
+
+
+def probe_params_to_torch(params_np: dict, device) -> tuple:
+    """The mean-RGB probe's pytree of `examples/train_vit.py`, `{"vit": …,
+    "head": {"w", "b"}}` with numpy leaves → (the ViT's state dict, the
+    head's `w` (dim, 3) f32, its `b` (3,) f32)."""
+    head = params_np["head"]
+    w, b = (_leaf_to_torch(np.asarray(head[k], np.float32), device)
+            for k in ("w", "b"))
+    return vit_params_to_torch(params_np["vit"], device), w, b

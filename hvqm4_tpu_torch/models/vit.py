@@ -1,7 +1,9 @@
 """ViT video encoder on decoded frames (the decode → RGB → resize → ViT path).
 
-The port of `hvqm4_tpu/models/vit.py`, for inference: the parameters are
-frozen. It keeps the JAX model's dtype flow (`gelu`, `attention` and
+The port of `hvqm4_tpu/models/vit.py`. The parameters are frozen unless
+the caller asks: a trainer calls `model.requires_grad_(True)`, and every op
+of `forward` has its backward in bf16 on the CPU and the card. It keeps the
+JAX model's dtype flow (`gelu`, `attention` and
 `LayerNorm` are each held against the JAX model's part, because a fault in
 them can hide inside the end-to-end bf16 spread):
 
@@ -96,6 +98,8 @@ class Block(nn.Module):
         self.wo = _frozen(d, d)
         self.ln2 = LayerNorm(d)
         self.w1, self.b1 = _frozen(d, mlp), _frozen(mlp)
+        # b2 is carried but never added, as in the JAX model: its gradient
+        # is zeros there and None here
         self.w2, self.b2 = _frozen(mlp, d), _frozen(d)
 
 

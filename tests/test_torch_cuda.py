@@ -2,8 +2,9 @@
 and the arena decoder on `cuda` against the C oracle and the CPU, the
 decode service on `cuda`, unbatched and batched, against the same service
 on the CPU, the loader and the embedding pipeline on `cuda` against the
-same classes on the CPU, and the encoder's full-nest search on `cuda`
-against the same search on the CPU.
+same classes on the CPU, the encoder's full-nest search on `cuda` against
+the same search on the CPU, and the training example's steps on `cuda`
+against the same steps on the CPU.
 
 Every test here needs a CUDA card and skips without one. The file imports
 no JAX, so it also runs where JAX is not installed; tests/conftest.py
@@ -20,7 +21,10 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import border_vectors, csc_planes, random_plan
+from chip_smoke import (border_vectors, csc_planes, implicit_syncs,
+                        random_plan)
+from examples.train_vit_torch import (loss_fn, make_optimizer, make_probe,
+                                      train_step, weight_of)
 from hvqm4_tpu_torch import refdec, serve
 from hvqm4_tpu_torch.convert import plan_to_torch
 from hvqm4_tpu_torch.config import SeqConfig
@@ -32,7 +36,7 @@ from hvqm4_tpu_torch.kernels.csc import (YUV_TO_RGB, _vector_ok, yuv_to_rgb,
                                          yuv_to_rgb_plain)
 from hvqm4_tpu_torch.kernels.inter import inter_combine, inter_combine_plain
 from hvqm4_tpu_torch.kernels.intra import intra_synth, intra_synth_plain
-from hvqm4_tpu_torch.models.vit import ViTConfig
+from hvqm4_tpu_torch.models.vit import ViTConfig, init_vit
 from hvqm4_tpu_torch.parallel.multistream import MultiStreamDecoder
 from hvqm4_tpu_torch.pipeline import VideoEmbedPipeline
 from hvqm4_tpu_torch.session import DecoderSession
@@ -509,3 +513,73 @@ def test_cuda_encoder_search_matches_cpu_and_decodes(cuda):
     got = [f.yuv_bytes() for f in DecoderSession(cfg, cuda).decode_clip(clip)]
     assert got == [b"".join(p.tobytes() for p in planes)
                    for planes in refdec.decode_clip(cfg, clip)]
+
+
+def _leaves(model, head) -> list:
+    """Every trained tensor, the ViT's by name and then the head's."""
+    sd = model.state_dict()
+    return [sd[k] for k in sorted(sd)] + [t.detach() for t in head]
+
+
+@pytest.mark.cuda
+def test_cuda_train_steps_match_cpu(cuda):
+    """Three `train_step`s on the card against three on the CPU, from the
+    same weights (zero head) on the same batches, one weight at 0: losses
+    within 2e-2 relative and parameters within 1.6e-2 max abs, the bounds
+    tests/test_torch_train.py holds the CPU to against optax."""
+    vcfg = ViTConfig(image_size=32, patch_size=8, dim=64, depth=2, heads=2)
+    rng = np.random.default_rng(11)
+    batches = [torch.from_numpy(rng.random((4, 32, 32, 3), np.float32))
+               for _ in range(3)]
+    weight = torch.tensor([1.0, 1.0, 0.0, 1.0])
+    sd = init_vit(vcfg, torch.Generator().manual_seed(4), "cpu").state_dict()
+    start = (sd, torch.zeros(vcfg.dim, 3), torch.zeros(3))
+    out = {}
+    for dev in ("cpu", cuda):
+        model, head = make_probe(vcfg, dev, params=start)
+        opt = make_optimizer(model, head)
+        losses = [float(train_step(model, head, opt, b.to(dev),
+                                   weight.to(dev))) for b in batches]
+        out[str(dev)] = losses, [t.cpu().float() for t in _leaves(model,
+                                                                  head)]
+    (lc, pc), (lg, pg) = out["cpu"], out[str(cuda)]
+    assert all(abs(g - c) <= 2e-2 * abs(c) for g, c in zip(lg, lc)), (lg, lc)
+    assert max(float((g - c).abs().max()) for g, c in zip(pg, pc)) <= 1.6e-2
+
+
+@pytest.mark.cuda
+def test_cuda_backward_default_vit_has_no_nan(cuda):
+    """A backward pass of the probe's loss through the default ViT at
+    batch 8 and 224x224, from a non-zero head: every gradient finite, every
+    ViT leaf's non-zero but the never-added b2's, which is None."""
+    vcfg = ViTConfig()
+    model, (w, b) = make_probe(vcfg, cuda, seed=2)
+    gen = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        w.copy_(0.1 * torch.randn(w.shape, generator=gen))
+    images = torch.rand((8, 224, 224, 3), generator=gen).to(cuda)
+    loss_fn(model, w, b, images, torch.ones(8, device=cuda)).backward()
+    for name, p in [*model.named_parameters(), ("head.w", w), ("head.b", b)]:
+        if name.endswith(".b2"):
+            assert p.grad is None, name
+            continue
+        assert bool(torch.isfinite(p.grad).all()), name
+        assert bool(p.grad.any()), name
+
+
+@pytest.mark.cuda
+def test_cuda_loader_batch_trains_without_host_sync(cuda):
+    """Each loader batch goes through `train_step` on the card without a
+    host synchronisation that nobody asked for (torch's sync debug mode),
+    and the losses read at the end are finite."""
+    cfg = SeqConfig(64, 48)
+    vcfg = ViTConfig(image_size=32, patch_size=8, dim=64, depth=2, heads=2)
+    model, head = make_probe(vcfg, cuda)
+    opt = make_optimizer(model, head)
+    losses, syncs = [], []
+    for images, valid in FrameBatchLoader(cfg, _consumer_clips(cfg), 32,
+                                          cuda):
+        syncs.append(implicit_syncs(lambda: losses.append(train_step(
+            model, head, opt, images, weight_of(valid, cuda)))))
+    assert len(losses) == 9 and syncs == [0] * 9
+    assert bool(torch.isfinite(torch.stack(losses)).all())

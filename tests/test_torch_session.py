@@ -298,6 +298,15 @@ assert cli.main(["transcode", sys.argv[1], out, "--device", "cpu",
                  "--gops", "IPP"]) == 0
 tinfo = Demuxer(open(out, "rb").read()).info
 assert tinfo.cfg == cfg and tinfo.video_frames == 3
+import scripts.bench_embed_torch
+import scripts.bench_train_torch
+import scripts.soak_device_torch
+from examples.train_vit_torch import train
+from hvqm4_tpu_torch.utils.profiling import torch_trace
+with torch_trace(os.path.join(os.path.dirname(sys.argv[1]), "trace")):
+    losses = train(cfg, [clip, clip], ViTConfig(16, 8, 32, 1, 2), epochs=1,
+                   device="cpu")
+assert len(losses) == 3
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "hvqm4_tpu"))
 assert loaded == ["hvqm4_tpu", "jax"], loaded   # only the blockers
@@ -310,7 +319,9 @@ def test_port_never_imports_jax(tmp_path):
     decodes through the session, the lock-step step, the arena decoder
     (pipelined, K=2), the server, unbatched and batched, one pipeline step
     and one loader batch, is encoded with the full-nest search on the CPU
-    and transcoded, with both JAX and the JAX package blocked."""
+    and transcoded, and the training example trains an epoch under
+    `torch_trace`, with both JAX and the JAX package blocked; the
+    example's, the scripts' and the soak's modules import too."""
     clip = tmp_path / "c.h4m"
     clip.write_bytes(make_clip(SeqConfig(32, 16), ["IPB"], seed=77))
     env = dict(os.environ, PYTHONPATH=str(REPO))
