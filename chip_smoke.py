@@ -85,6 +85,24 @@ Phases, in order; any failure exits non-zero before the result line:
    third, profiled epoch; embed_fps of the same streams. Last the soak:
    `scripts/soak_device_torch.py`'s cases of `SOAK_SEEDS` on the card, each
    stream equal to the oracle's bytes.
+5f. sharded: the same 8 streams at full width on a dp=2 x tp=2 mesh of 4
+   ranks sharing the one card through gloo (`parallel.dist.launch`), then
+   at world size 1 through nccl. Each rank, counted: its 4 (8) streams
+   through `MultiStreamDecoder(sharding=shard_streams(mesh))`, every
+   frame's csum equal to the oracle's; `VideoEmbedPipeline(mesh=…)` with
+   the default ViT (3 heads and an MLP of 768 a tp rank); two epochs of
+   `FrameBatchLoader(mesh=…)` into `train_step` with
+   the "dp" group. `intra_synth_acc` and `inter_combine` must launch 3 x
+   the rank's decode steps, `yuv_to_rgb` once an embed or train step,
+   `intra_synth_noacc` never. Then, uncounted, the unsharded pipeline on
+   the rank's own streams: every step's embeddings within max abs 2e-2
+   and cosine 0.9999. Every rank's first two losses within 1e-3 relative
+   of phase 5e's on one device (step 1 trains only the zero head, so both
+   take step 2 from the same ViT), the same history on every rank, and no
+   module of JAX or `hvqm4_tpu` in any rank. Printed: which collectives
+   gloo runs on CUDA tensors, each rank's counts, train_fps of epoch 2 on
+   each mesh (ranks sharing one card) beside phase 5e's, the phase's
+   seconds.
 6. serve: the port's `DecodeServer` on cuda, on a thread, answers both
    clips over TCP in YUV (FNV-1a == `oracle --hash`), RGB (== the integer
    formula on the oracle's frames) and EMBED (28 finite 384-vectors; two
@@ -120,9 +138,10 @@ Phases, in order; any failure exits non-zero before the result line:
    over one pipeline run.
 
 `launches` in the kernels line is the sum of the counted phases 4-5, 5b,
-5c, 5d, 5e and 6; its times are the luma grid's (480x640 for `yuv_to_rgb`)
-at N=8. Before the last lines the script fails if any module of JAX or of
-`hvqm4_tpu` was imported, and prints its own seconds end to end. The line
+5c, 5d, 5e, 5f (every rank) and 6; its times are the luma grid's
+(480x640 for `yuv_to_rgb`) at N=8. Before the last lines the script fails
+if any module of JAX or of `hvqm4_tpu` was imported, and prints its own
+seconds end to end. The line
 before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -140,6 +159,7 @@ import subprocess
 import sys
 import threading
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -1421,7 +1441,7 @@ def phase_train(dev, cfg, clips: dict, kernels: list, tag: str) -> tuple:
     the 8 streams through `FrameBatchLoader(image_size=224)`; the first
     steps are replayed on the CPU; then, after the counts were read, the
     times and the soak. Returns (the launch counts of the two epochs, the
-    decode steps they ran)."""
+    decode steps they ran, the first two losses, epoch 2's train_fps)."""
     import torch
 
     from examples.train_vit_torch import (loss_fn, make_optimizer,
@@ -1612,7 +1632,219 @@ def phase_train(dev, cfg, clips: dict, kernels: list, tag: str) -> tuple:
     descs = soak(cases, base, dev, log=lambda s: None)
     for d in descs:
         print(f"soak on {dev}: {d}: every stream == the oracle's bytes")
-    return launches, steps
+    return launches, steps, card[:2], frames / wall
+
+
+
+SHARDED_MESH = (2, 2)  # dp, tp: phase 5f's 4 ranks on the one card (gloo)
+SHARDED_EPOCHS = 2  # of training on each mesh; train_fps is the last's
+# the collectives phase 5f tries with gloo on CUDA tensors (the design
+# needs all_reduce alone)
+GLOO_PROBES = ("all_reduce", "broadcast", "all_gather_into_tensor",
+               "reduce_scatter_tensor")
+
+
+def probe_collectives(dev) -> list:
+    """The `GLOO_PROBES` the process group runs on a CUDA tensor of `dev`;
+    every rank tries each in the same order."""
+    import torch
+    import torch.distributed as dist
+
+    world = dist.get_world_size()
+    x = torch.ones(4 * world, device=dev)
+    calls = {"all_reduce": lambda: dist.all_reduce(x),
+             "broadcast": lambda: dist.broadcast(x, 0),
+             "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+                 torch.empty(4 * world * world, device=dev), x),
+             "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+                 torch.empty(4, device=dev), x)}
+    ok = []
+    for name in GLOO_PROBES:
+        try:
+            with warnings.catch_warnings():  # the _tensor forms' deprecation
+                warnings.simplefilter("ignore", FutureWarning)
+                calls[name]()
+            torch.cuda.synchronize(dev)
+            ok.append(name)
+        except RuntimeError:
+            pass
+    return ok
+
+
+def all_reduce_ms(numel: int, group, dev, reps: int = 10) -> float:
+    """Host ms of one f32 all-reduce of `numel` elements on `dev` over
+    `group`, synchronised, mean of `reps` after one warm-up."""
+    import torch
+    import torch.distributed as dist
+
+    x = torch.ones(numel, device=dev)
+    dist.all_reduce(x, group=group)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        dist.all_reduce(x, group=group)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def sharded_rank(dev, dp: int, tp: int, cfg, streams: list, want: list,
+                 epochs: int) -> dict:
+    """One rank of phase 5f on a ("dp", "tp") mesh: the sharded decode
+    (`MultiStreamDecoder(sharding=…)`, csums), `VideoEmbedPipeline(mesh=…)`
+    and `epochs` of training (`FrameBatchLoader(mesh=…)`, `train_step`
+    with the "dp" group), all counted; then, uncounted, the unsharded
+    pipeline on this rank's own streams for the embedding gate."""
+    import torch
+    import torch.distributed as dist
+
+    from examples.train_vit_torch import (make_optimizer, make_probe,
+                                          train_step, weight_of)
+    from hvqm4_tpu_torch.data import FrameBatchLoader
+    from hvqm4_tpu_torch.kernels import _build
+    from hvqm4_tpu_torch.models.vit import ViTConfig, shard_vit_params
+    from hvqm4_tpu_torch.parallel.dist import make_mesh
+    from hvqm4_tpu_torch.parallel.multistream import (MultiStreamDecoder,
+                                                      shard_streams)
+    from hvqm4_tpu_torch.pipeline import VideoEmbedPipeline
+
+    t_start = time.perf_counter()
+    mesh = make_mesh(dp, tp, dev.type)
+    shard = shard_streams(mesh, "dp")
+    n = len(streams) // dp
+    lo = shard.index * n
+    vcfg = ViTConfig()
+    collectives = probe_collectives(dev)
+    kernels = _build.kernels()
+    for k in kernels:
+        k.launches = 0
+    ms = MultiStreamDecoder(cfg, streams, dev, sharding=shard)
+    got = arena_csums(ms, ms.run_pipelined())
+    steps = {"decode": int(ms.stats["steps"])}
+    embs = [(e.cpu().numpy(), v) for e, _m, v in VideoEmbedPipeline(
+        cfg, streams, vcfg, device=dev, mesh=mesh).run()]
+    steps["embed"] = len(embs)
+    model, head = make_probe(vcfg, dev, seed=0)
+    shard_vit_params(model, mesh, "tp")
+    opt = make_optimizer(model, head)
+    group = mesh.get_group("dp")
+    losses, walls = [], []
+    for _ in range(epochs):
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        for images, valid in FrameBatchLoader(
+                cfg, streams, image_size=vcfg.image_size, device=dev,
+                mesh=mesh):
+            losses.append(train_step(model, head, opt, images,
+                                     weight_of(valid, dev), group))
+        torch.cuda.synchronize()
+        dist.barrier()
+        walls.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    launches = {k.symbol: k.launches for k in kernels}
+    steps["train"] = len(losses)
+    # what one step's collectives cost here: a tp all-reduce of one
+    # block's activations (4 a block where tp > 1: 2 forward, 2 backward)
+    # and the dp all-reduce of the gradients and the loss
+    grads = 1 + sum(p.numel() for p in model.parameters()
+                    if p.grad is not None) + 3 * vcfg.dim + 3
+    sizes = {"tp": (n * vcfg.n_patches * vcfg.dim,
+                    4 * vcfg.depth if tp > 1 else 0),
+             "dp": (grads, 1)}
+    coll_ms = {axis: (4 * numel / 1e6, all_reduce_ms(
+        numel, mesh.get_group(axis), dev), per_step)
+        for axis, (numel, per_step) in sizes.items()}
+    ref = [e.cpu().numpy() for e, _m, _v in VideoEmbedPipeline(
+        cfg, streams[lo:lo + n], vcfg, device=dev).run()]
+    gate = [within_vit_gate(e, r) for (e, _v), r in zip(embs, ref)]
+    return {"rank": dist.get_rank(), "streams": (lo, lo + n),
+            "csum_ok": all(got[j] == want[lo + j] for j in range(n)),
+            "frames": sum(map(len, got)), "launches": launches,
+            "steps": steps, "losses": torch.stack(losses).cpu().tolist(),
+            "walls": walls, "collectives": collectives,
+            "all_reduce_ms": coll_ms,
+            "embed_gate": (max(d for d, _c in gate), min(c for _d, c in gate)),
+            "valid_all": all(all(v) for _e, v in embs),
+            "leaked": sorted(m for m in sys.modules if m.split(".")[0] in
+                             ("hvqm4_tpu", "jax", "jaxlib")),
+            "seconds": time.perf_counter() - t_start}
+
+
+def phase_sharded(cfg, clips: dict, want: dict, single: tuple,
+                  tag: str) -> dict:
+    """Phase 5f: the sharded path at full width, 4 ranks of a dp=2 x tp=2
+    mesh on the one card through gloo, then world size 1 through nccl.
+    `single` is phase 5e's (first two losses, train_fps). Gates every
+    rank; returns the launch counts summed over the ranks of both runs."""
+    from hvqm4_tpu_torch.parallel.dist import launch
+
+    t0 = time.perf_counter()
+    streams = [clips[n] for n in STREAM_CLIPS]
+    csums = [want[n] for n in STREAM_CLIPS]
+    dp, tp = SHARDED_MESH
+    total: dict = collections.Counter()
+    for backend, dp_, tp_ in (("gloo", dp, tp), ("nccl", 1, 1)):
+        t1 = time.perf_counter()
+        out = launch(sharded_rank, dp_ * tp_, dp_, tp_, cfg, streams, csums,
+                     SHARDED_EPOCHS, device="cuda", backend=backend)
+        spent = time.perf_counter() - t1
+        where = f"dp={dp_} tp={tp_}, {dp_ * tp_} rank(s) on one card, {backend}"
+        for r in out:
+            steps = r["steps"]
+            if not r["csum_ok"] or r["frames"] != 28 * N_STREAMS // dp_:
+                fail(f"sharded ({where}) rank {r['rank']}: streams "
+                     f"{r['streams']} differ from the oracle")
+            if r["leaked"]:
+                fail(f"sharded rank {r['rank']} imported {r['leaked']}")
+            d, cos = r["embed_gate"]
+            if not (d <= 2e-2 and cos >= 0.9999 and r["valid_all"]):
+                fail(f"sharded ({where}) rank {r['rank']}: embeddings max abs "
+                     f"{d}, cosine {cos} against the unsharded model")
+            rel = [abs(a - b) / abs(b) for a, b in zip(r["losses"], single[0])]
+            if max(rel) > 1e-3:
+                fail(f"sharded ({where}) rank {r['rank']}: first losses "
+                     f"{r['losses'][:2]} against one device's {single[0]}")
+            decoded = steps["decode"] + steps["embed"] + steps["train"]
+            for sym, n in (("hvqm4_intra_synth_acc", 3 * decoded),
+                           ("hvqm4_inter_combine", 3 * decoded),
+                           ("hvqm4_yuv_to_rgb",
+                            steps["embed"] + steps["train"]),
+                           ("hvqm4_intra_synth_noacc", 0)):
+                if r["launches"][sym] != n:
+                    fail(f"sharded rank {r['rank']}: {sym} launched "
+                         f"{r['launches'][sym]} times, want {n}")
+            total.update(r["launches"])
+            print(f"sharded {where}, rank {r['rank']} (streams "
+                  f"{r['streams'][0]}-{r['streams'][1] - 1}): {r['frames']} "
+                  f"frames csum == oracle; embeddings max abs {d:.3e}, "
+                  f"cosine {cos:.7f} against the unsharded model on its "
+                  f"streams; losses {[round(x, 6) for x in r['losses'][:2]]}"
+                  f" (one device {[round(x, 6) for x in single[0]]}, "
+                  f"relative {max(rel):.2e}); launches {r['launches']} over "
+                  f"{steps} steps; {r['seconds']:.1f} s in the rank; "
+                  f"collectives on CUDA tensors: {r['collectives']}")
+        losses = out[0]["losses"]
+        if not all(r["losses"] == losses for r in out):
+            fail(f"sharded ({where}): the ranks' loss histories differ")
+        wall = out[0]["walls"][-1]
+        coll = out[0]["all_reduce_ms"]
+        step_ms = 1e3 * wall / (len(losses) // SHARDED_EPOCHS)
+        print(f"time sharded collectives ({where}), rank 0, f32 on CUDA "
+              f"tensors, mean of 10: " + ", ".join(
+                  f"{a} all-reduce of {mb:.3f} MB {ms:.3f} ms" for a, (
+                      mb, ms, _k) in coll.items())
+              + f"; a train step's {coll['tp'][2]} tp and 1 dp of them: "
+              f"{sum(ms * k for _mb, ms, k in coll.values()):.1f} ms of its "
+              f"{step_ms:.1f} ms [{tag}]")
+        print(f"time sharded train ({where}), epoch {len(out[0]['walls'])} "
+              f"of the default ViT on {N_STREAMS} streams: "
+              f"{28 * N_STREAMS} frames in {wall:.4f} s = "
+              f"{28 * N_STREAMS / wall:.1f} train_fps of {dp_ * tp_} rank(s) "
+              f"on one card, beside one device's {single[1]:.1f} train_fps "
+              f"without a process group (phase 5e); the launch {spent:.1f} s "
+              f"[{tag}]")
+    print(f"phase 5f (sharded): {time.perf_counter() - t0:.1f} s [{tag}]")
+    return dict(total)
 
 
 def phase_serve(dev, cfg, clips: dict, oracle: Path, kernels: list,
@@ -1983,7 +2215,8 @@ def main() -> int:
     # phase 5e: the training path on the arena decoder, counted
     for k in kernels:
         k.launches = 0
-    train_launches, train_steps = phase_train(dev, cfg, clips, kernels, tag)
+    train_launches, train_steps, *single = phase_train(dev, cfg, clips,
+                                                        kernels, tag)
     print(f"launches on the training path (phase 5e, {train_steps} steps): "
           f"{train_launches}")
     for sym, n in (("hvqm4_yuv_to_rgb", train_steps),
@@ -1993,6 +2226,11 @@ def main() -> int:
         if train_launches[sym] != n:
             fail(f"{sym} launched {train_launches[sym]} times on the "
                  f"training path, want {n}")
+
+    # phase 5f: the sharded path, counted in each rank
+    sharded_launches = phase_sharded(cfg, clips, want, single, tag)
+    print(f"launches on the sharded path (phase 5f, summed over the ranks): "
+          f"{sharded_launches}")
 
     # phase 6: the decode service, counted
     for k in kernels:
@@ -2028,6 +2266,7 @@ def main() -> int:
                                   + consumer_launches[k.symbol]
                                   + encoder_launches[k.symbol]
                                   + train_launches[k.symbol]
+                                  + sharded_launches.get(k.symbol, 0)
                                   + serve_launches[k.symbol]),
                      "max_abs_err": err[name], "ms": t["ms"],
                      "plain_ms": t["plain_ms"],

@@ -33,6 +33,12 @@ The device half is rewritten here:
 - `pipeline`, `data`: the consumer faces on the arena decoder:
   `VideoEmbedPipeline` (streams → ViT embeddings, the ViT at batch N) and
   `FrameBatchLoader` (streams → RGB batches, in decode or display order);
+- `parallel.dist`: one process a rank (`launch`), the ("dp", "tp")
+  `DeviceMesh` and the tensor-parallel collectives; with a mesh the
+  decoder, the loader and the pipeline keep a rank's streams over "dp" and
+  `models.vit.shard_vit_params` its heads and MLP units over "tp";
+- `entry`: `entry()` (the lock-step step and its arguments at 640x480) and
+  `dryrun_multichip(n)` (the sharded path on n ranks against the oracle);
 - `utils.stats`: per-clip mode histograms over the C++ planner;
 - `encode_tpu`: the encoder's full-nest search (`NestSearch`), every
   candidate scored on the device (`VideoEncoder(use_tpu_search=True)`);

@@ -32,6 +32,12 @@ Nothing here waits for the card: batches are enqueued on the current CUDA
 stream behind their decode step. `device` defaults to `cuda` and the
 constructor raises without a card; `device="cpu"` runs the plain path on
 purpose.
+
+With `mesh` (a ("dp", "tp") `DeviceMesh`, `parallel.dist.make_mesh`) the
+decoder keeps this rank's share of the streams along "dp"
+(`shard_streams`); the ranks of one "dp" group decode the same streams, as
+the JAX loader replicates the decode over "tp". Batches, `valid` and the
+display-order stream indices are then the rank's own.
 """
 
 from __future__ import annotations
@@ -40,16 +46,18 @@ import torch
 
 from .config import SeqConfig
 from .ops.csc import frame_to_rgb, resize_bilinear
-from .parallel.multistream import MultiStreamDecoder
+from .parallel.multistream import MultiStreamDecoder, shard_streams
 
 
 class FrameBatchLoader:
     def __init__(self, cfg: SeqConfig, clips: list[bytes],
                  image_size: int | None = None, device="cuda", *,
-                 display_order: bool = False, plan_ahead: int = 1):
+                 display_order: bool = False, plan_ahead: int = 1,
+                 mesh=None):
         self.cfg = cfg
-        self.decoder = MultiStreamDecoder(cfg, clips, device,
-                                          plan_ahead=plan_ahead)
+        self.decoder = MultiStreamDecoder(
+            cfg, clips, device, plan_ahead=plan_ahead,
+            sharding=None if mesh is None else shard_streams(mesh, "dp"))
         self.display_order = display_order
         self.image_size = image_size
 

@@ -24,6 +24,15 @@ The f32 score product relies on full-f32 matmuls on the card
 Parameter layout: `wq`, `wk`, `wv` (d, nh, hd) are stored as (d, nh·hd),
 `wo` (nh, hd, d) as (nh·hd, d); `convert.vit_params_to_torch` carries the
 JAX pytree across.
+
+Tensor parallelism: `shard_vit_params` keeps, in place, one "tp" rank's
+heads and MLP hidden units, as the JAX `shard_vit_params` places them over
+the mesh. `forward` then reads its head count from the weights; the
+replicated `h` enters the q/k/v and `w1` products through
+`dist.copy_to_tp`, and the `wo` and `w2` partial products stay in f32 until
+`dist.reduce_from_tp` has summed them, then round to bf16 once, as JAX's
+f32 product followed by one cast does (an all-reduce in bf16 would round
+twice).
 """
 
 from __future__ import annotations
@@ -34,6 +43,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel.dist import axis_size, copy_to_tp, reduce_from_tp
 
 BF16 = torch.bfloat16
 
@@ -115,27 +126,69 @@ class ViT(nn.Module):
         self.pos = _frozen(cfg.n_patches, d)
         self.ln_f = LayerNorm(d)
         self.blocks = nn.ModuleList(Block(cfg) for _ in range(cfg.depth))
+        self.tp_group = None  # set by `shard_vit_params`
 
     def forward(self, images):
         cfg = self.cfg
         B = images.shape[0]
-        ps, nh, hd = cfg.patch_size, cfg.heads, cfg.head_dim
+        ps, hd, tp = cfg.patch_size, cfg.head_dim, self.tp_group
         g = cfg.image_size // ps
         # patch vectors ordered (py, px, c), as vit.py:91-92
         x = images.reshape(B, g, ps, g, ps, 3).permute(0, 1, 3, 2, 4, 5)
         x = x.reshape(B, g * g, ps * ps * 3).to(BF16)
         x = x @ self.patch_w + self.patch_b + self.pos
 
-        def heads(t):  # (B, P, nh·hd) → (B, nh, P, hd)
-            return t.reshape(B, -1, nh, hd).transpose(1, 2)
+        def heads(t):  # (B, P, nh·hd) → (B, nh, P, hd), nh this rank's
+            return t.reshape(B, -1, t.shape[-1] // hd, hd).transpose(1, 2)
+
+        def enter(t):  # the replicated input of a sharded product
+            return t if tp is None else copy_to_tp(t, tp)
+
+        def leave(t, w):  # a sharded product, summed over the ranks
+            if tp is None:
+                return t @ w
+            return reduce_from_tp(t.float() @ w.float(), tp).to(BF16)
 
         for blk in self.blocks:
-            h = blk.ln1(x)
+            h = enter(blk.ln1(x))
             q, k, v = heads(h @ blk.wq), heads(h @ blk.wk), heads(h @ blk.wv)
-            o = attention(q, k, v).transpose(1, 2).reshape(B, -1, nh * hd)
-            x = x + o @ blk.wo
-            x = x + gelu(blk.ln2(x) @ blk.w1 + blk.b1) @ blk.w2
+            x = x + leave(attention(q, k, v).transpose(1, 2).flatten(2),
+                          blk.wo)
+            h = enter(blk.ln2(x))
+            x = x + leave(gelu(h @ blk.w1 + blk.b1), blk.w2)
         return self.ln_f(x).to(torch.float32).mean(dim=1)
+
+
+def shard_vit_params(model: ViT, mesh, axis: str = "tp") -> ViT:
+    """Keep, in place, this rank's slice of the full `model` along the
+    mesh's `axis` (the JAX `shard_vit_params`: `wq/wk/wv` over heads, `wo`
+    over the same rows, `w1`, `b1` and `w2` over the MLP hidden width). Rank
+    t of T keeps heads [t*nh/T, (t+1)*nh/T), which are head-major columns,
+    and hidden units [t*m/T, (t+1)*m/T); the rest stays replicated. Call it
+    before an optimizer takes the parameters. Returns `model`."""
+    cfg = model.cfg
+    size, t = axis_size(mesh, axis), mesh.get_local_rank(axis)
+    mlp = cfg.mlp_ratio * cfg.dim
+    if cfg.heads % size or mlp % size:
+        raise ValueError(f"{cfg.heads} heads and an MLP width of {mlp} must "
+                         f"both divide by mesh axis {axis!r} size {size}")
+    if size == 1:
+        return model
+    w = cfg.heads // size * cfg.head_dim
+    cols, hidden = slice(t * w, (t + 1) * w), slice(t * mlp // size,
+                                                      (t + 1) * mlp // size)
+    everything = slice(None)
+    for blk in model.blocks:
+        for name, index in (("wq", (everything, cols)),
+                            ("wk", (everything, cols)),
+                            ("wv", (everything, cols)), ("wo", cols),
+                            ("w1", (everything, hidden)), ("b1", hidden),
+                            ("w2", hidden)):
+            p = getattr(blk, name)
+            setattr(blk, name, nn.Parameter(p.detach()[index].clone(),
+                                            requires_grad=p.requires_grad))
+    model.tp_group = mesh.get_group(axis)
+    return model
 
 
 def init_vit(cfg: ViTConfig, generator: torch.Generator, device) -> ViT:

@@ -32,9 +32,22 @@ Two host loops share `multi_frame_step`:
 - **The per-field lock-step path** (`plan_steps`, `decode_lockstep`): dense
   per-stream plans stacked with `convert.stack_plans`, 18 copies a step.
 
-Not ported: the JAX package's sharded path (`shard_map` over a mesh) and
-its pure-Python planner fallback; the staging rows stay 2-D (one row) so
-a multi-GPU layout fits without a change.
+The sharded path, one process a rank (`parallel.dist`): with
+`sharding=StreamShard(s, S)` (`shard_streams(mesh, "dp")`) a decoder takes
+the whole list of streams, keeps streams [s*n/S, (s+1)*n/S) and yields that
+rank's (n/S, …) frames, metas and valids. Decode has no collectives: the
+JAX package's `_arena_step_sharded` is a `shard_map` of the same step with
+none either. Each rank plans and packs its own staging row and picks its
+own tiers; the JAX decoder picks one tier for every row, from the largest
+shard total, only because `shard_map` needs equal shapes. Each rank also
+walks the record cursors of every stream of the list (never planning
+them), and steps as long as that walk has frames left, so all ranks step
+alike without a collective and yield the JAX decoder's steps. A planner
+cannot see another rank's streams, so a stream that fails in a planner
+walks on as filler: where the JAX decoder would stop after such a stream,
+the ranks yield trailing steps with every frame invalid.
+
+Not ported: the JAX package's pure-Python planner fallback.
 """
 
 from __future__ import annotations
@@ -435,6 +448,46 @@ class _Stream:
     anchors: int = 0       # I/P frames decoded in the current GOP block
     cur_block: int = -1
 
+    @property
+    def active(self) -> bool:
+        return self.pos < len(self.records) and not self.failed
+
+    def take(self):
+        """The next record, the cursor moved on; None once the stream has
+        ended or is poisoned (a B frame without two references, FORMAT.md
+        §10: the stream is invalid, the batch goes on)."""
+        if not self.active:
+            return None
+        bi, fchar, _payload = self.records[self.pos]
+        if bi != self.cur_block:      # GOP block boundary: refs reset
+            self.cur_block = bi
+            self.anchors = 0
+        if fchar == "B" and self.anchors < 2:
+            self.failed = True
+            return None
+        if fchar in ("I", "P"):
+            self.anchors += 1
+        self.pos += 1
+        return self.records[self.pos - 1]
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamShard:
+    """A rank's place on the stream axis: shard `index` of `count` along
+    the mesh axis `axis`, owning streams [index*n/count,
+    (index+1)*n/count)."""
+    index: int
+    count: int
+    axis: str = "dp"
+
+
+def shard_streams(mesh, axis: str = "dp") -> StreamShard:
+    """This rank's `StreamShard` along `axis` of a `DeviceMesh` (the JAX
+    package's `NamedSharding(mesh, P(axis))`; the other axes replicate)."""
+    from .dist import axis_size
+
+    return StreamShard(mesh.get_local_rank(axis), axis_size(mesh, axis), axis)
+
 
 @dataclasses.dataclass
 class FrameMeta:
@@ -462,12 +515,15 @@ class MultiStreamDecoder:
     per stream. `steps_per_dispatch` (K) fuses K lock-step frames of every
     stream into one dispatch; `plan_ahead` sizes the staging ring (the
     steps that may be planned or in flight ahead of the device).
+    `sharding` (a `StreamShard`) keeps this rank's share of the streams
+    (module docstring); `n` and `streams` are then that share's.
     """
 
     def __init__(self, cfg: SeqConfig, clips: list[bytes], device="cuda", *,
                  record_lists: list | None = None,
                  steps_per_dispatch: int = 1,
-                 plan_ahead: int = 1):
+                 plan_ahead: int = 1,
+                 sharding: StreamShard | None = None):
         self.cfg = cfg
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -478,10 +534,10 @@ class MultiStreamDecoder:
         self.planner = NativePlanner(cfg)
         self._k = max(int(steps_per_dispatch), 1)
         self._depth = max(int(plan_ahead), 1)
-        self.streams = []
+        streams = []
         if record_lists is not None:
             for recs in record_lists:
-                self.streams.append(_Stream(records=list(recs)))
+                streams.append(_Stream(records=list(recs)))
         else:
             for clip in clips:
                 d = Demuxer(clip)
@@ -489,7 +545,19 @@ class MultiStreamDecoder:
                     raise ValueError("all streams must share one SeqConfig")
                 recs = [(r.block_index, r.frame_char, r.payload)
                         for r in d.video_records()]
-                self.streams.append(_Stream(records=recs))
+                streams.append(_Stream(records=recs))
+        shard = sharding or StreamShard(0, 1)
+        if len(streams) % shard.count:
+            raise ValueError(
+                f"{len(streams)} streams not divisible by mesh axis "
+                f"{shard.axis!r} size {shard.count}")
+        lo = shard.index * len(streams) // shard.count
+        hi = (shard.index + 1) * len(streams) // shard.count
+        self.streams = streams[lo:hi]
+        # sharded: every stream's record cursor, walked alike on every rank
+        # and never planned (module docstring)
+        self._walk = ([_Stream(records=s.records) for s in streams]
+                      if shard.count > 1 else [])
         self.n = len(self.streams)
         self.nest, self.ref_prev, self.ref_last = init_state(cfg, self.n,
                                                              self.device)
@@ -592,7 +660,15 @@ class MultiStreamDecoder:
 
     @property
     def active(self) -> list[bool]:
-        return [s.pos < len(s.records) and not s.failed for s in self.streams]
+        return [s.active for s in self.streams]
+
+    def _more(self) -> bool:
+        """Whether to step on: while a stream is active, or, sharded, while
+        the walk of the whole list has frames left (the same on every
+        rank)."""
+        if self._walk:
+            return any(s.active for s in self._walk)
+        return any(self.active)
 
     # -- host half -------------------------------------------------------------
 
@@ -624,36 +700,33 @@ class MultiStreamDecoder:
         a call plans the next K lock-step frames of every stream and
         metas/valid are nested per step: metas[k][si]."""
         buf, metas, valid, _failures = self._plan_step_into(
-            self._bufs[self._cur], self._dequeue_jobs())
+            self._bufs[self._cur], self._dequeue_jobs()[0])
         self._cur = (self._cur + 1) % len(self._bufs)
         if self._k == 1:
             return buf, metas[0], valid[0]
         return buf, metas, valid
 
-    def _dequeue_jobs(self) -> list:
-        """Serially advance every stream's cursor, assigning its next K
-        lock-step records to virtual slots. Stateful, so it runs in step
-        order; the planning of the returned jobs may run on any thread."""
+    def _dequeue_jobs(self) -> tuple[list, list]:
+        """Serially advance every stream's cursor, assigning the next K
+        lock-step records of this rank's streams to virtual slots. Stateful,
+        so it runs in step order; the planning of the returned jobs may run
+        on any thread. Returns (the slot jobs, per step k whether the walk
+        of the whole list has a frame there; all False unsharded)."""
         n, K = self.n, self._k
         slot_jobs: list = [None] * (K * n)
         for si, s in enumerate(self.streams):
             for k in range(K):
-                if s.failed or s.pos >= len(s.records):
+                job = s.take()
+                if job is None:
                     break
-                bi, fchar, _payload = s.records[s.pos]
-                if bi != s.cur_block:      # GOP block boundary: refs reset
-                    s.cur_block = bi
-                    s.anchors = 0
-                if fchar == "B" and s.anchors < 2:
-                    # invalid stream (FORMAT.md §10: B without two
-                    # references) — poison it, keep the batch
-                    s.failed = True
+                slot_jobs[self._slot(si, k)] = job
+        walked = [False] * K
+        for s in self._walk:
+            for k in range(K):
+                if s.take() is None:
                     break
-                if fchar in ("I", "P"):
-                    s.anchors += 1
-                slot_jobs[self._slot(si, k)] = s.records[s.pos]
-                s.pos += 1
-        return slot_jobs
+                walked[k] = True
+        return slot_jobs, walked
 
     def _plan_step_into(self, buf, slot_jobs):
         """Plan pre-dequeued jobs into `buf` and assemble its staging
@@ -874,7 +947,7 @@ class MultiStreamDecoder:
 
         With fused dispatch (K > 1): frames [3 x (K, n, H, W)], metas and
         valid nested per step (metas[k][si])."""
-        if not any(self.active):
+        if not self._more():
             return None
         buf, metas, valid = self.plan_step()
         return self.device_step(buf), metas, valid
@@ -903,14 +976,15 @@ class MultiStreamDecoder:
             def submit() -> bool:
                 # advance self._cur (not a local cursor) so a later step()
                 # or plan_step() continues the ring where this run left off
-                if not any(self.active):
+                if not self._more():
                     return False
                 t0 = time.perf_counter()
-                jobs = self._dequeue_jobs()       # serial, in step order
+                jobs, walked = self._dequeue_jobs()  # serial, in step order
                 self.stats["dequeue_s"] += time.perf_counter() - t0
                 buf = self._bufs[self._cur]
                 self._cur = (self._cur + 1) % ring
-                pending.append(ex.submit(self._plan_and_stage, buf, jobs))
+                pending.append((ex.submit(self._plan_and_stage, buf, jobs),
+                                walked))
                 return True
 
             for _ in range(self._depth):
@@ -918,7 +992,8 @@ class MultiStreamDecoder:
                     break
             while pending:
                 t0 = time.perf_counter()
-                buf, metas, valid, failures = pending.popleft().result()
+                job, walked = pending.popleft()
+                buf, metas, valid, failures = job.result()
                 self.stats["wait_s"] += time.perf_counter() - t0
                 tp, ta = buf["t_split"]
                 self.stats["plan_s"] += tp
@@ -940,7 +1015,7 @@ class MultiStreamDecoder:
                     yield frames, metas[0], valid[0]
                 else:
                     for k in range(self._k):
-                        if not any(valid[k]) and k > 0:
+                        if k > 0 and not (any(valid[k]) or walked[k]):
                             continue  # trailing filler slots of a short clip
                         yield ([frames[pi][k] for pi in range(3)],
                                metas[k], valid[k])

@@ -16,6 +16,12 @@ embeddings are enqueued on the current CUDA stream behind the decode step
 and nothing here waits for the card: the consumer decides when to
 synchronise. `device` defaults to `cuda` and the constructor raises without
 a card; `device="cpu"` runs the plain path on purpose.
+
+With `mesh` (a ("dp", "tp") `DeviceMesh`, `parallel.dist.make_mesh`) the
+decoder keeps this rank's share of the streams along "dp" and the model
+this rank's heads and MLP units along "tp" (`models.vit.shard_vit_params`):
+decode has no collectives, the ViT all-reduces over "tp". Each rank yields
+its own streams' (n/dp, dim) embeddings, metas and valids.
 """
 
 from __future__ import annotations
@@ -23,9 +29,9 @@ from __future__ import annotations
 import torch
 
 from .config import SeqConfig
-from .models.vit import ViT, ViTConfig, init_vit
+from .models.vit import ViT, ViTConfig, init_vit, shard_vit_params
 from .ops.csc import frame_to_rgb, resize_bilinear
-from .parallel.multistream import MultiStreamDecoder
+from .parallel.multistream import MultiStreamDecoder, shard_streams
 
 
 @torch.no_grad()
@@ -42,15 +48,18 @@ def embed_frames(model: ViT, frames, h_samp: int, v_samp: int):
 class VideoEmbedPipeline:
     """`params`: a state dict of `models.vit.ViT` (what
     `convert.vit_params_to_torch` returns), or None for weights drawn from
-    `rng_seed`. `plan_ahead` sizes the decoder's staging ring."""
+    `rng_seed`; with `mesh` every rank takes the full model so and keeps its
+    slice. `plan_ahead` sizes the decoder's staging ring."""
 
     def __init__(self, cfg: SeqConfig, clips: list[bytes],
                  vit_cfg: ViTConfig | None = None, params: dict | None = None,
-                 device="cuda", *, rng_seed: int = 0, plan_ahead: int = 1):
+                 device="cuda", *, rng_seed: int = 0, plan_ahead: int = 1,
+                 mesh=None):
         self.cfg = cfg
         self.vit_cfg = vit_cfg or ViTConfig()
-        self.decoder = MultiStreamDecoder(cfg, clips, device,
-                                          plan_ahead=plan_ahead)
+        self.decoder = MultiStreamDecoder(
+            cfg, clips, device, plan_ahead=plan_ahead,
+            sharding=None if mesh is None else shard_streams(mesh, "dp"))
         device = self.decoder.device
         if params is None:
             self.model = init_vit(
@@ -59,6 +68,8 @@ class VideoEmbedPipeline:
             self.model = ViT(self.vit_cfg)
             self.model.load_state_dict(params)
             self.model.to(device)
+        if mesh is not None:
+            shard_vit_params(self.model, mesh, "tp")
 
     def run(self, pipelined: bool = True):
         """Yield (embeddings (N, dim) f32 on the device, metas, valid) per

@@ -37,11 +37,14 @@ from hvqm4_tpu_torch.kernels.csc import (YUV_TO_RGB, _vector_ok, yuv_to_rgb,
 from hvqm4_tpu_torch.kernels.inter import inter_combine, inter_combine_plain
 from hvqm4_tpu_torch.kernels.intra import intra_synth, intra_synth_plain
 from hvqm4_tpu_torch.models.vit import ViTConfig, init_vit
+from hvqm4_tpu_torch.parallel.dist import launch
 from hvqm4_tpu_torch.parallel.multistream import MultiStreamDecoder
 from hvqm4_tpu_torch.pipeline import VideoEmbedPipeline
 from hvqm4_tpu_torch.session import DecoderSession
 from hvqm4_tpu_torch.utils.hashing import batch_csum, oracle_csums
 from tools.encoder import make_clip
+
+from .torch_sharded_ranks import steps_rank
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
@@ -583,3 +586,27 @@ def test_cuda_loader_batch_trains_without_host_sync(cuda):
             model, head, opt, images, weight_of(valid, cuda)))))
     assert len(losses) == 9 and syncs == [0] * 9
     assert bool(torch.isfinite(torch.stack(losses)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend,dp,tp", [("nccl", 1, 1), ("gloo", 1, 2),
+                                           ("gloo", 2, 1)])
+def test_cuda_mesh_train_steps_match_one_device(cuda, backend, dp, tp):
+    """Two `train_step`s on a mesh of ranks on the card (NCCL at world size
+    1; two gloo ranks sharing cuda:0, over "tp" and over "dp") against two
+    on one device, from the same weights (step 1 trains only the zero
+    head): every rank's losses within 1e-3 relative."""
+    vcfg = ViTConfig(image_size=32, patch_size=8, dim=64, depth=2, heads=2)
+    rng = np.random.default_rng(12)
+    batches = [rng.random((4, 32, 32, 3), np.float32) for _ in range(2)]
+    weight = np.array([1.0, 1.0, 0.0, 1.0], np.float32)
+    model, head = make_probe(vcfg, cuda, seed=0)
+    opt = make_optimizer(model, head)
+    want = [float(train_step(model, head, opt, torch.from_numpy(b).to(cuda),
+                             torch.from_numpy(weight).to(cuda)))
+            for b in batches]
+    got = launch(steps_rank, dp * tp, dp, tp, vcfg, batches, weight,
+                 device="cuda", backend=backend)
+    for losses in got:
+        assert all(abs(g - w) <= 1e-3 * abs(w) for g, w in zip(losses, want)
+                   ), (got, want)

@@ -166,7 +166,8 @@ def test_loader_signature_and_default_device():
     exported lazily from the package."""
     sig = inspect.signature(FrameBatchLoader.__init__)
     assert list(sig.parameters) == ["self", "cfg", "clips", "image_size",
-                                    "device", "display_order", "plan_ahead"]
+                                    "device", "display_order", "plan_ahead",
+                                    "mesh"]
     assert sig.parameters["device"].default == "cuda"
     assert hvqm4_tpu_torch.FrameBatchLoader is FrameBatchLoader
     if torch.cuda.is_available():

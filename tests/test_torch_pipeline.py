@@ -188,7 +188,7 @@ def test_pipeline_signature_and_default_device(clips):
     sig = inspect.signature(VideoEmbedPipeline.__init__)
     assert list(sig.parameters) == ["self", "cfg", "clips", "vit_cfg",
                                     "params", "device", "rng_seed",
-                                    "plan_ahead"]
+                                    "plan_ahead", "mesh"]
     assert sig.parameters["device"].default == "cuda"
     assert hvqm4_tpu_torch.VideoEmbedPipeline is VideoEmbedPipeline
     if torch.cuda.is_available():

@@ -89,6 +89,29 @@ def test_train_example_takes_clips(tiny_clip):
     assert res.stdout.startswith("steps=10 ")
 
 
+def test_train_example_on_a_gloo_mesh(tiny_clip):
+    """`--dp 2 --tp 2` on four gloo ranks of the CPU: rank 0 prints the JAX
+    example's line, and the loss falls."""
+    res = _run(REPO / "examples" / "train_vit_torch.py", "--device", "cpu",
+               "--clip", tiny_clip, "--clip", tiny_clip, "--epochs", 2,
+               "--dp", 2, "--tp", 2, "--backend", "gloo")
+    assert res.returncode == 0, res.stdout + res.stderr[-2000:]
+    lines = res.stdout.strip().splitlines()
+    assert len(lines) == 1 and lines[0].startswith("steps=10 first_loss=")
+    assert lines[0].endswith("(mesh dp=2 tp=2)")
+
+
+def test_train_example_refuses_nccl_without_a_card_per_rank(tiny_clip):
+    res = _run(REPO / "examples" / "train_vit_torch.py", "--device", "cpu",
+               "--clip", tiny_clip, "--clip", tiny_clip, "--dp", 2,
+               "--backend", "nccl")
+    assert res.returncode == 1 and res.stdout == ""
+    assert res.stderr.strip().splitlines() == [
+        "train_vit_torch.py: backend 'nccl' needs a CUDA card per rank: 2 "
+        "ranks on 0 card(s) of cpu; use backend 'gloo' for ranks that share "
+        "a card or run on the CPU"]
+
+
 def test_torch_trace_writes_a_trace(tmp_path):
     logdir = tmp_path / "trace"
     with torch_trace(str(logdir)):
