@@ -136,6 +136,20 @@ Phases, in order; any failure exits non-zero before the result line:
    images, RGB + resize of one step alone, the host synchronisations that
    an arena step and an embed make unasked, and the device's busy share
    over one pipeline run.
+8. bench: `python3 bench_torch.py` at its defaults in its own process
+   group, its total budget `BENCH_BUDGET_S`: rc 0 and one JSON line,
+   `backend` cuda, no `phase_failures`, `bitexact` and
+   `device_replay_bitexact` true on both clips (retail at K=28), `value`,
+   `device_fps`, `retail_device_fps` and `plan_fps` above 0, and in every
+   job that touched the card `intra_synth_acc` and `inter_combine`
+   launched 3 x its decode steps (dispatched steps x K: the hash 28, the
+   device phase 28 a pass with its warm pass, the pipeline 2 x 28),
+   `intra_synth_noacc` and `yuv_to_rgb` never. Then its instruments, each
+   rc 0 with its keys on the card: `scripts/device_sweep_torch.py 8`,
+   `compute_ceiling_torch.py 2`, `profile_split_torch.py 8` and
+   `soak_throughput_torch.py --minutes 0.5`. The bench's headline fields,
+   its whole line and each instrument's line are printed with the card's
+   name and power limit.
 
 `launches` in the kernels line is the sum of the counted phases 4-5, 5b,
 5c, 5d, 5e, 5f (every rank) and 6; its times are the luma grid's
@@ -154,6 +168,8 @@ import copy
 import functools
 import io
 import json
+import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -2109,6 +2125,121 @@ def fmt_us(us) -> str:
     return "not measured" if us is None else f"{us:.2f} us"
 
 
+# Phase 8: `bench_torch.py`'s total budget inside the smoke (the bench takes
+# about 2 minutes on one H100), and each instrument with its arguments and
+# the keys its last line must carry
+BENCH_BUDGET_S = 420
+BENCH_JOBS = ("hash", "retail_hash", "link", "device", "retail_device",
+              "pipeline", "retail_pipeline")  # the jobs that touch the card
+INSTRUMENTS = (
+    (("device_sweep_torch.py", "8"),
+     ("full_ms_per_step", "device_fps", "compute_ms_per_step", "compute_fps",
+      "upload_ms_per_step", "upload_fps", "upload_gbps", "mb_per_step",
+      "steps_per_dispatch", "backend")),
+    (("compute_ceiling_torch.py", "2"),
+     ("compute_only_fps_samples", "compute_only_fps_best", "streams",
+      "frames_per_pass", "backend")),
+    (("profile_split_torch.py", "8"),
+     ("plan_ms_per_step", "xfer_ms_per_step", "step_ms_per_step", "sync_ms",
+      "kib_per_step", "fps", "backend")),
+    (("soak_throughput_torch.py", "--minutes", "0.5"),
+     ("fps_median", "fps_head3", "fps_tail3", "fps_min", "fps_max",
+      "stable", "passes", "backend")))
+
+
+def run_group(cmd: list, timeout: float, env=None) -> tuple:
+    """Run `cmd` from the checkout in a process group of its own: (rc,
+    stdout, stderr, seconds). On the timeout the whole group is killed
+    (the bench's phase subprocesses too) and the phase fails."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        fail(f"{' '.join(cmd[1:])} did not end within {timeout:.0f} s")
+    return proc.returncode, out, err, time.perf_counter() - t0
+
+
+def check_bench_line(line: dict, frames: dict) -> None:
+    """Phase 8's gates on `bench_torch.py`'s result line. `frames` is each
+    clip's frame count by key prefix ("" heavy, "retail_"), so every job's
+    decode steps (dispatched steps x K, K dividing the 28 frames) are
+    known: the hash 1 run, the device phase 1 warm pass + its timed
+    passes, the pipeline 1 warm and 1 timed run."""
+    if line.get("phase_failures"):
+        fail(f"bench_torch.py phase failures: {line['phase_failures']}")
+    if line.get("backend") != "cuda":
+        fail(f"bench_torch.py ran on {line.get('backend')!r}, not cuda")
+    for key in ("bitexact", "retail_bitexact", "device_replay_bitexact",
+                "retail_device_replay_bitexact"):
+        if line.get(key) is not True:
+            fail(f"bench_torch.py {key} is {line.get(key)!r}, not true")
+    for key in ("value", "device_fps", "retail_device_fps", "plan_fps"):
+        if not line.get(key, 0) > 0:
+            fail(f"bench_torch.py {key} is {line.get(key)!r}, not above 0")
+    counts = line.get("kernel_launches", {})
+    if sorted(counts) != sorted(BENCH_JOBS):
+        fail(f"bench_torch.py counted jobs {sorted(counts)}, want "
+             f"{sorted(BENCH_JOBS)}")
+    for job, c in counts.items():
+        phase = job.removeprefix("retail_")
+        prefix = job[:-len(phase)]
+        n = frames[prefix]
+        steps = {"hash": n, "link": 0, "pipeline": 2 * n,
+                 "device": (1 + line.get(prefix + "device_passes", 0)) * n
+                 }[phase]
+        want = {"decode_steps": steps, "intra_synth_acc": 3 * steps,
+                "inter_combine": 3 * steps, "intra_synth_noacc": 0,
+                "yuv_to_rgb": 0}
+        if c != want:
+            fail(f"bench_torch.py {job}: launches {c}, want {want}")
+
+
+def phase_bench(frames: dict, tag: str) -> None:
+    """Phase 8: `bench_torch.py` end to end at its defaults under
+    `BENCH_BUDGET_S` (`check_bench_line`), then each of its four
+    instruments; every result is printed with the card's name and power
+    limit."""
+    env = dict(os.environ, HVQM4_BENCH_BUDGET_S=str(BENCH_BUDGET_S))
+    rc, out, err, secs = run_group([sys.executable, "bench_torch.py"],
+                                   BENCH_BUDGET_S + 180, env)
+    lines = out.strip().splitlines()
+    if rc != 0 or len(lines) != 1:
+        fail(f"bench_torch.py: rc {rc}, {len(lines)} stdout lines, want 0 "
+             f"and 1:\n{out[-2000:]}\n{err[-3000:]}")
+    line = json.loads(lines[0])
+    check_bench_line(line, frames)
+    print(f"bench_torch.py: {secs:.1f} s (budget {BENCH_BUDGET_S} s); "
+          f"value (pipeline, heavy, {line['streams']} streams) "
+          f"{line['value']} fps, retail {line['retail_pipeline_fps']}; "
+          f"device_fps heavy ({line['device_streams']} streams, K=1) best "
+          f"{line['device_fps']} median {line['device_fps_median']}, retail "
+          f"({line['retail_device_streams']} streams, K=28) best "
+          f"{line['retail_device_fps']} median "
+          f"{line['retail_device_fps_median']}; plan_fps "
+          f"{line['plan_fps']}, retail {line['retail_plan_fps']}; "
+          f"link_h2d_gbps {line['link_h2d_gbps']}, rtt "
+          f"{line['link_rtt_ms']} ms; oracle_fps {line['oracle_fps']}, "
+          f"retail {line['retail_oracle_fps']}; bitexact, replay-bitexact "
+          f"both clips; launches 3 x decode steps in every job [{tag}]")
+    print(f"bench_torch.py line: {json.dumps(line)}")
+    for args, keys in INSTRUMENTS:
+        rc, out, err, secs = run_group(
+            [sys.executable, f"scripts/{args[0]}", *args[1:]], 300)
+        if rc != 0:
+            fail(f"{' '.join(args)}: rc {rc}:\n{err[-3000:]}")
+        res = json.loads(out.strip().splitlines()[-1])
+        missing = [k for k in keys if k not in res]
+        if missing or res["backend"] != "cuda":
+            fail(f"{' '.join(args)}: keys {missing} missing or backend "
+                 f"{res.get('backend')!r}: {res}")
+        print(f"{' '.join(args)}: {json.dumps(res)} ({secs:.1f} s) [{tag}]")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not (REPO / "hvqm4_tpu_torch").is_dir():
@@ -2247,6 +2378,10 @@ def main() -> int:
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip())
     times = phase_times(dev, cfg, clips, tag)
+
+    # phase 8: the bench and its instruments, each in its own processes
+    phase_bench({"": len(want[CLIPS[0]]), "retail_": len(want[CLIPS[1]])},
+                tag)
 
     sources = {"hvqm4_intra_synth_noacc": "intra.cu",
                "hvqm4_intra_synth_acc": "intra.cu",

@@ -3,7 +3,9 @@ runs them, on the CPU (`--device cpu`); and `utils.profiling.torch_trace`.
 
 Each script is the counterpart of a JAX one (`scripts/bench_embed.py`,
 `scripts/bench_train.py`, `scripts/soak_device.py`,
-`examples/train_vit.py`); the JSON lines keep the JAX scripts' keys.
+`examples/train_vit.py`, and `bench_torch.py`'s instruments
+`scripts/device_sweep.py`, `compute_ceiling.py`, `profile_split.py` and
+`soak_throughput.py`); the JSON lines keep the JAX scripts' keys.
 """
 
 import json
@@ -28,8 +30,8 @@ TRAIN_KEYS = {"config", "streams", "clip", "vit", "frames", "train_fps",
               "decode_s", "train_s", "last_loss"}
 
 
-def _run(*args, timeout=300) -> subprocess.CompletedProcess:
-    env = dict(os.environ, PYTHONPATH=str(REPO))
+def _run(*args, timeout=300, env=None) -> subprocess.CompletedProcess:
+    env = dict(os.environ, PYTHONPATH=str(REPO), **(env or {}))
     return subprocess.run([sys.executable, *map(str, args)], cwd=REPO,
                           env=env, capture_output=True, text=True,
                           timeout=timeout)
@@ -60,6 +62,51 @@ def test_bench_script_prints_one_json_line(tiny_clip, script, keys, rate):
     if "train_s" in out:
         assert out["decode_s"] >= 0 and out["train_s"] > 0
         assert out["ms_per_step"] > 0 and out["last_loss"] >= 0
+
+
+# `bench_torch.py`'s instruments: the JAX scripts' keys, with the port's
+# `card` (and `backend`, the torch device type)
+INSTRUMENTS = [
+    (("device_sweep_torch.py", 2),
+     {"streams", "steps", "frames", "steps_per_dispatch", "mb_per_step",
+      "backend", "card", "full_ms_per_step", "device_fps",
+      "compute_ms_per_step", "compute_fps", "upload_ms_per_step",
+      "upload_fps", "upload_gbps"}),
+    (("compute_ceiling_torch.py", 2),
+     {"compute_only_fps_samples", "compute_only_fps_best", "streams",
+      "frames_per_pass", "backend", "card"}),
+    (("profile_split_torch.py", 2),
+     {"streams", "steps", "frames", "steps_per_dispatch", "wall_s", "fps",
+      "plan_ms_per_step", "xfer_ms_per_step", "step_ms_per_step", "sync_ms",
+      "kib_per_step", "upload_mb_per_s", "backend", "card"}),
+    (("soak_throughput_torch.py", "--minutes", 0.01, "--streams", 2),
+     {"soak", "passes", "fps_median", "fps_head3", "fps_tail3", "fps_min",
+      "fps_max", "stable", "backend", "card"})]
+
+
+@pytest.mark.parametrize("args,keys", INSTRUMENTS,
+                         ids=[a[0] for a, _k in INSTRUMENTS])
+def test_bench_instrument_prints_its_keys(args, keys):
+    """Each instrument on `--device cpu` at testdata/i320.h4m (4 frames), 2
+    streams; the soak prints a line a pass before its summary."""
+    env = {"HVQM4_BENCH_CLIP": str(REPO / "testdata" / "i320.h4m"),
+           "HVQM4_BENCH_STREAMS": "2", "OMP_NUM_THREADS": "1"}
+    res = _run(REPO / "scripts" / args[0], *args[1:], "--device", "cpu",
+               env=env)
+    assert res.returncode == 0, res.stderr[-2000:]
+    lines = [json.loads(line) for line in res.stdout.strip().splitlines()]
+    out = lines[-1]
+    assert set(out) == keys
+    assert out["backend"] == "cpu" and out["card"] is None
+    if "soak" in out:
+        assert out["passes"] == len(lines) - 1 >= 1 and out["fps_min"] > 0
+        assert all(set(p) == {"pass", "fps", "frames", "rss_mb"} and
+                   p["frames"] == 8 for p in lines[:-1])
+    else:
+        assert len(lines) == 1 and out["streams"] == 2
+        assert min(v for k, v in out.items()
+                   if k.endswith(("fps", "fps_best"))) > 0
+        assert out.get("frames", out.get("frames_per_pass")) == 8
 
 
 def test_soak_two_seeds_oracle_exact():
