@@ -38,8 +38,9 @@ below, plus `gpu` (nvidia-smi's card name and power limit, null without
 one) and `budget_s`.
 
 Env knobs: HVQM4_BENCH_STREAMS (default 8), HVQM4_BENCH_CLIP (default
-testdata/ref640.h4m; a missing clip is refused in one line, there is no
-clip generator here), HVQM4_STEPS_PER_DISPATCH (default 1),
+testdata/ref640.h4m; a missing clip is generated there, as `bench.py`
+does, by the port's `tools/encoder_torch.make_clip`: see `load_clip`; a
+missing retail clip fails its jobs), HVQM4_STEPS_PER_DISPATCH (default 1),
 HVQM4_BENCH_BUDGET_S (the total wall-clock budget, default 1500),
 HVQM4_BENCH_DEVICE_S (the device phase's timed passes, default 600) and
 HVQM4_BENCH_PHASE_S (the whole device phase, default 1000). Every phase
@@ -85,12 +86,19 @@ def ensure_oracle() -> pathlib.Path:
 
 
 def load_clip(path: pathlib.Path):
-    """(cfg, bytes) of a clip on disk; a missing clip exits in one line."""
+    """(cfg, bytes) of a clip on disk. A missing clip is generated there
+    first, as `bench.py`'s `ensure_clip` does: the port's `make_clip` of
+    640x480, ["IBBPBP" + "BP" * 8, "IPPPPP"], seed 7, two audio channels,
+    which is testdata/ref640.h4m byte for byte."""
+    from hvqm4_tpu_torch.config import SeqConfig
     from hvqm4_tpu_torch.container import Demuxer
+    from tools.encoder_torch import make_clip
 
-    if not path.is_file():
-        sys.exit(f"bench: clip {path} not found (testdata/ holds "
-                 f"ref640.h4m, retail640.h4m and i320.h4m)")
+    if not path.exists():
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_bytes(make_clip(
+            SeqConfig(640, 480), ["IBBPBP" + "BP" * 8, "IPPPPP"], seed=7,
+            audio_channels=2))
     data = path.read_bytes()
     # the cfg comes from the clip itself (HVQM4_BENCH_CLIP may be any shape)
     return Demuxer(data).info.cfg, data
@@ -577,7 +585,9 @@ def main() -> None:
 
     def oracle_fps_for(prefix: str, clip_path: pathlib.Path) -> float:
         try:
-            if not clip_path.is_file():
+            if prefix == "":
+                load_clip(clip_path)  # generated when missing, as bench.py
+            elif not clip_path.is_file():
                 raise FileNotFoundError(clip_path)
             res = subprocess.run(
                 [str(ensure_oracle()), "--bench", "5", str(clip_path)],

@@ -83,8 +83,10 @@ Phases, in order; any failure exits non-zero before the result line:
    CUDA events; the launches of one train step from the profiler and the
    host synchronisations it makes unasked; the device's busy share over a
    third, profiled epoch; embed_fps of the same streams. Last the soak:
-   `scripts/soak_device_torch.py`'s cases of `SOAK_SEEDS` on the card, each
-   stream equal to the oracle's bytes.
+   `scripts/soak_device_torch.py`'s cases of `SOAK_SEEDS` on the card
+   (random geometries, each stream a `make_clip` clip drawn as
+   `scripts/soak_device.py` draws it), each stream equal to the oracle's
+   bytes.
 5f. sharded: the same 8 streams at full width on a dp=2 x tp=2 mesh of 4
    ranks sharing the one card through gloo (`parallel.dist.launch`), then
    at world size 1 through nccl. Each rank, counted: its 4 (8) streams
@@ -118,12 +120,15 @@ Phases, in order; any failure exits non-zero before the result line:
    Then request latencies and the ViT's time per frame.
 7. times (after a line of the card's SM and memory clocks and power draw):
    kernel and plain times (CUDA events, 3 warm-ups, median of 20;
-   the profiler's device time per call), the decode kernels at both
-   640x480 grids with N = 1, 8 and 32, each beside its bound: the bytes
-   this data needs (`intra_bytes`, `inter_bytes`) over 3.35 TB/s;
-   `yuv_to_rgb` at 480x640 4:2:0 with N = 1, 8 and 64 (88.47 MB, past the
-   50 MB L2) and 4:4:4 with N = 8 (the vector variant), and at 480x632
-   (8 mod 16 wide: the general variant) with N = 8 in both. Then session
+   the profiler's device time per call), in a process of its own (a fresh
+   profiler), each call with a cold L2: a 256 MiB write (`L2Flush`) goes
+   before it, outside the events and left out of the profiler's sum. The
+   decode kernels at both 640x480 grids with N = 1, 8 and 32, each beside
+   its bound: the bytes this data needs (`intra_bytes`, `inter_bytes`)
+   over 3.35 TB/s; `yuv_to_rgb` at 480x640 4:2:0 with N = 1, 8 and 64 and
+   4:4:4 with N = 8 (the vector variant), and at 480x632 (8 mod 16 wide:
+   the general variant) with N = 8 in both.
+   A device time below its bound / 1.05 fails the phase. Then session
    and lock-step frame rates, host planning timed separately, and beside
    them the arena path's: pipelined fps at K = 1 and 2 with the decoder's
    stage split per frame (plan, assemble, stage, upload, dispatch, wait),
@@ -150,13 +155,29 @@ Phases, in order; any failure exits non-zero before the result line:
    `soak_throughput_torch.py --minutes 0.5`. The bench's headline fields,
    its whole line and each instrument's line are printed with the card's
    name and power limit.
+9. tools: random clips of the port's generator (`tools/encoder_torch.py`)
+   at 640x480, each ["IPB", "IP"], made in parallel processes: three 4:2:0
+   streams (`slices` 8; `mv_extreme`; 2 audio channels with `dc_shift` 7)
+   through the arena `MultiStreamDecoder` on cuda at K = 1 and 2, and a
+   4:4:4 clip at version 1.5 through `DecoderSession`; every frame's csum
+   equal to `oracle --csum`. On the arena `intra_synth_acc` and
+   `inter_combine` must launch 3 x the decode steps and
+   `intra_synth_noacc` never; in the session `intra_synth_noacc` 3 x the I
+   frames. Beside it, in a process of its own (`fuzz_child`), the 60
+   mutants of `scripts/fuzz_battery_torch.py`'s six bases: those the
+   oracle decodes with rc 0 and the port's planner plans whole go through
+   the arena decoder on cuda at K = 1 and 2, with no CUDA fault, every
+   frame equal to `refdec`'s golden decode on the CPU, and every csum
+   equal to `oracle --csum` where the golden decode's is. A mutant whose
+   golden decode parts from the oracle is printed and counted. The
+   phase's seconds are printed.
 
 `launches` in the kernels line is the sum of the counted phases 4-5, 5b,
-5c, 5d, 5e, 5f (every rank) and 6; its times are the luma grid's
-(480x640 for `yuv_to_rgb`) at N=8. Before the last lines the script fails
-if any module of JAX or of `hvqm4_tpu` was imported, and prints its own
-seconds end to end. The line
-before the last is a JSON object of the kernels; the last line is
+5c, 5d, 5e, 5f (every rank), 6 and 9 (its child too); its times are the
+luma grid's (480x640 for `yuv_to_rgb`) at N=8. Before the last lines
+the script fails if any module of JAX or of `hvqm4_tpu` was imported,
+and prints its own seconds end to end. The line before the last is a
+JSON object of the kernels; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -199,15 +220,20 @@ def card_line() -> str:
         check=True, capture_output=True, text=True).stdout.strip()
 
 
-def cuda_ms(fn, warmup: int = 3, iters: int = 20) -> float:
-    """Median device time of one call, from CUDA events around it."""
+def cuda_ms(fn, warmup: int = 3, iters: int = 20, before=None) -> float:
+    """Median device time of one call, from CUDA events around it;
+    `before`, when given, runs before each call, outside the events."""
     import torch
 
     for _ in range(warmup):
+        if before:
+            before()
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(iters):
+        if before:
+            before()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -560,8 +586,30 @@ def run_lockstep(cfg, steps, dev) -> None:
 
 
 HBM_BYTES_PER_S = 3.35e12  # one H100 SXM, NVIDIA's data sheet
-L2_BYTES = 50e6
 TIME_NS = (1, N_STREAMS, 32)  # N=32 luma moves more than the 50 MB L2
+FLUSH_BYTES = 256 << 20  # phase 7's L2 flush: a write of 5x the L2
+BOUND_SLACK = 1.05  # a device time below bound / 1.05 is no reading
+
+
+class L2Flush:
+    """Phase 7's cold L2: each call writes `FLUSH_BYTES` of float64 over a
+    buffer of its own, so that the next call finds none of its inputs in
+    the L2 and every line there dirty with other data (its own writes
+    must evict them). The profiler names its kernel after `ROW`; no plain
+    version fills float64."""
+
+    ROW = "FillFunctor<double>"
+
+    def __init__(self, dev):
+        import torch
+
+        self.buf = torch.empty(FLUSH_BYTES // 8, dtype=torch.float64,
+                               device=dev)
+        self.value = 0.0
+
+    def __call__(self) -> None:
+        self.value += 1.0
+        self.buf.fill_(self.value)
 
 
 def intra_bytes(plan, nest, want_acc: bool) -> tuple:
@@ -664,39 +712,57 @@ def inter_bytes(plan, ref0, ref1) -> tuple:
     return need, whole
 
 
-def phase_times(dev, cfg, clips: dict, tag: str) -> dict:
-    """Phase 7 timings: the decode kernels vs plain at the 640x480 grids
-    with N = 1, 8 and 32, each beside its bound; `yuv_to_rgb` vs plain at
-    `CSC_TIME_POINTS`; then the session and lock-step frame rates.
-    Returns, per kernel, the luma (or 480x640) N=8 figures."""
+def kernel_times_child() -> None:
+    """Phase 7's kernel timings (`kernel_times`) on the card, in a process
+    of its own: a fresh profiler. In a process that has profiled the
+    earlier phases, the profiler's windows lost device activity, and a
+    window that lost some reads too few us a call. Prints the timing
+    lines, then one JSON line of the luma (480x640) N=8 figures."""
     import torch
 
-    from hvqm4_tpu_torch.container import Demuxer
+    print(json.dumps(kernel_times(torch.device("cuda", 0), card_line())))
+
+
+def kernel_times(dev, tag: str) -> dict:
+    """Phase 7's kernel timings: the decode kernels vs plain at the 640x480
+    grids with N = 1, 8 and 32, each beside its bound; `yuv_to_rgb` vs
+    plain at `CSC_TIME_POINTS`. Returns, per kernel, the luma (or 480x640)
+    N=8 figures."""
+    import torch
+
     from hvqm4_tpu_torch.convert import plan_to_torch
     from hvqm4_tpu_torch.kernels.csc import yuv_to_rgb, yuv_to_rgb_plain
     from hvqm4_tpu_torch.kernels.inter import inter_combine, inter_combine_plain
     from hvqm4_tpu_torch.kernels.intra import intra_synth, intra_synth_plain
-    from hvqm4_tpu_torch.session import DecoderSession
 
     rng = np.random.default_rng(7)
     times = {}
 
+    flush = L2Flush(dev)
+
     def timed(name, kern, plain, nbytes, what, keep):
-        # plain, kernel, kernel, plain: the two halves bracket drift
-        p1, k1, k2, p2 = (cuda_ms(plain), cuda_ms(kern), cuda_ms(kern),
-                          cuda_ms(plain))
+        # plain, kernel, kernel, plain: the two halves bracket drift; every
+        # call starts with a cold L2
+        p1, k1, k2, p2 = (cuda_ms(plain, before=flush),
+                          cuda_ms(kern, before=flush),
+                          cuda_ms(kern, before=flush),
+                          cuda_ms(plain, before=flush))
         k, p = min(k1, k2), min(p1, p2)
-        dev_us, plain_us = device_us_per_call(kern), device_us_per_call(plain)
+        dev_us, plain_us = (device_us_per_call(kern, flush),
+                            device_us_per_call(plain, flush))
         need, whole = nbytes
         bound_us = need / HBM_BYTES_PER_S * 1e6
         share = (f"{100 * bound_us / dev_us:.1f}% of it" if dev_us
                  else "share not measured")
         print(f"time {name} {what}: kernel {k:.4f} ms, plain {p:.4f} ms "
-              f"({p / k:.1f}x) per call; device only: kernel {fmt_us(dev_us)}"
-              f", plain {fmt_us(plain_us)}; bound {bound_us:.2f} us "
-              f"({need / 1e6:.3f} MB this data needs; the whole arrays "
-              f"{whole / 1e6:.3f} MB = "
+              f"({p / k:.1f}x) per call, cold L2; device only: kernel "
+              f"{fmt_us(dev_us)}, plain {fmt_us(plain_us)}; bound "
+              f"{bound_us:.2f} us ({need / 1e6:.3f} MB this data needs; the "
+              f"whole arrays {whole / 1e6:.3f} MB = "
               f"{whole / HBM_BYTES_PER_S * 1e6:.2f} us), {share} [{tag}]")
+        if dev_us and bound_us > BOUND_SLACK * dev_us:
+            fail(f"{name} {what}: {dev_us:.2f} us on the device is below its "
+                 f"bound of {bound_us:.2f} us: no reading of the kernel")
         if keep:
             times[name] = {"ms": k, "plain_ms": p, "bound_us": bound_us,
                            "device_us": dev_us}
@@ -727,16 +793,35 @@ def phase_times(dev, cfg, clips: dict, tag: str) -> dict:
     for n, w, samp in CSC_TIME_POINTS:
         y, u, v = random_yuv(rng, n, 480, w, samp, dev)
         nbytes = 4 * y.numel() + u.numel() + v.numel()  # Y, U, V in; RGB out
-        l2 = (" (in the 50 MB L2 across calls: the bound is no floor)"
-              if nbytes < L2_BYTES else " (past the L2)")
         # fresh planes start aligned, so the width picks the variant
         variant = "vector" if w % 16 == 0 else "general"
         timed("yuv_to_rgb", lambda: yuv_to_rgb(y, u, v, samp, samp),
               lambda: yuv_to_rgb_plain(y, u, v, samp, samp), (nbytes, nbytes),
               f"480x{w} {'4:2:0' if samp == 2 else '4:4:4'} N={n}, {variant} "
-              f"variant{l2}", (n, w, samp) == (N_STREAMS, 640, 2))
+              f"variant", (n, w, samp) == (N_STREAMS, 640, 2))
         del y, u, v  # N=64's are 29 MB; each point's RGB dies in timed
         torch.cuda.empty_cache()
+    return times
+
+
+def phase_times(dev, cfg, clips: dict, tag: str) -> dict:
+    """Phase 7 timings: `kernel_times` in a process of its own
+    (`kernel_times_child`), then the session and lock-step frame rates.
+    Returns, per kernel, the luma (or 480x640) N=8 figures."""
+    import torch
+
+    from hvqm4_tpu_torch.container import Demuxer
+    from hvqm4_tpu_torch.session import DecoderSession
+
+    rc, out, err, secs = run_group(
+        [sys.executable, "-c",
+         "import chip_smoke; chip_smoke.kernel_times_child()"], 900)
+    lines = out.strip().splitlines()
+    if rc != 0 or not lines:
+        fail(f"kernel timings: rc {rc}:\n{out[-2000:]}\n{err[-3000:]}")
+    print("\n".join(lines[:-1]))
+    times = json.loads(lines[-1])
+    print(f"kernel timings: {secs:.1f} s in their own process [{tag}]")
 
     for name, data in clips.items():
         sess = DecoderSession(Demuxer(data).info.cfg, dev, profile=True)
@@ -2109,15 +2194,30 @@ def device_profile(fn, what: str, tag: str) -> None:
         print(f"  {us / 1e3:9.3f} ms x{count:<5d} {key[:90]}")
 
 
-def device_us_per_call(fn, calls: int = 20):
+def device_us_per_call(fn, flush: L2Flush | None = None, calls: int = 20):
     """Device time in us of one call of `fn` (all its kernels), from the
-    profiler over `calls` calls; None when the profiler saw no device. The
+    profiler over `calls` calls; None when the profiler saw no device. With
+    `flush`, each call follows a flush, whose rows are left out; a window
+    that does not show every flush lost activity and does not count. The
     profiler now and then records no CUDA activity in a window, so a
     window that shows none is taken once more."""
+
+    def run():
+        for _ in range(calls):
+            if flush is not None:
+                flush()
+            fn()
+
     for _ in range(2):
-        res = profile(lambda: [fn() for _ in range(calls)])
-        if res is not None:
-            return sum(r[0] for r in res[1]) / calls
+        res = profile(run)
+        if res is None:
+            continue
+        rows = res[1]
+        if flush is not None:
+            if sum(c for _us, c, key in rows if flush.ROW in key) != calls:
+                continue
+            rows = [r for r in rows if flush.ROW not in r[2]]
+        return sum(us for us, _count, _key in rows) / calls
     return None
 
 
@@ -2238,6 +2338,279 @@ def phase_bench(frames: dict, tag: str) -> None:
             fail(f"{' '.join(args)}: keys {missing} missing or backend "
                  f"{res.get('backend')!r}: {res}")
         print(f"{' '.join(args)}: {json.dumps(res)} ({secs:.1f} s) [{tag}]")
+
+
+# Phase 9: random clips at full width from the port's generator
+# (`tools/encoder_torch.make_clip`), each of `TOOLS_GOPS`: three 4:2:0
+# streams for the arena decoder (what, make_clip keywords), one 4:4:4 clip
+# at version 1.5 for the session; and the fuzz battery's mutants
+# (`scripts/fuzz_battery_torch.py`: mutants over its six bases, base seed)
+TOOLS_SIZE = (640, 480)
+TOOLS_GOPS = ["IPB", "IP"]
+TOOLS_STREAMS = (
+    ("slices 8", {"seed": 9101, "slices": 8}),
+    ("mv_extreme", {"seed": 9102, "mv_extreme": True}),
+    # dc_shift 7 scales every DC delta, escaped ones included, by 128
+    ("2 audio channels, dc_shift 7",
+     {"seed": 9103, "audio_channels": 2, "dc_shift": 7}),
+)
+TOOLS_SESSION = {"seed": 9104}
+FUZZ = (60, 11000)
+FUZZ_TIMEOUT_S = 300
+
+
+def _make_clip(cfg, gops: list, kwargs: dict) -> bytes:
+    from tools.encoder_torch import make_clip
+
+    return make_clip(cfg, gops, **kwargs)
+
+
+def generate_clips(jobs: list) -> list:
+    """`make_clip(cfg, gops, **kwargs)` of each job, one worker process a
+    job (the generator is pure Python)."""
+    import multiprocessing
+
+    with multiprocessing.get_context("spawn").Pool(len(jobs)) as pool:
+        return pool.starmap(_make_clip, jobs)
+
+
+def fuzz_child(device: str = "cuda") -> None:
+    """Phase 9b, in a process of its own (a CUDA fault poisons its
+    process). The mutants of `scripts/fuzz_battery_torch.py` (`FUZZ`) that
+    the oracle decodes with rc 0, that keep their base's shape and that the
+    port's planner plans whole go, a base's together as streams, through
+    the arena decoder on `device` at K = 1 and 2. Every stream's frames
+    must equal the golden decoder's (`refdec`, on the CPU, from the same
+    plans) byte for byte, and `oracle --csum` wherever the golden decode
+    does. Each base's mutants are named on stderr before they reach the
+    device. Prints one JSON line: the counts, the mutants whose golden
+    decode parts from the oracle, and the kernels' launches."""
+    import tempfile
+
+    import torch
+
+    from hvqm4_tpu_torch import refdec
+    from hvqm4_tpu_torch.container import ContainerError, Demuxer
+    from hvqm4_tpu_torch.kernels import _build
+    from hvqm4_tpu_torch.native import NativePlanner, PlannerError
+    from hvqm4_tpu_torch.parallel.multistream import MultiStreamDecoder
+    from hvqm4_tpu_torch.utils.hashing import batch_csum
+    from scripts.fuzz_battery_torch import base_mutants
+
+    t0 = time.perf_counter()
+    n, base_seed = FUZZ
+    subprocess.run(["make", "-s", "-C", str(REPO / "oracle")], check=True)
+    oracle = REPO / "oracle" / "hvqm4_oracle"
+    kernels = _build.kernels()
+    for k in kernels:
+        k.launches = 0
+    counts = collections.Counter()
+    parts, decode_steps = [], 0
+    with tempfile.TemporaryDirectory() as td:
+        path = Path(td) / "m.h4m"
+        for bi, _spec, cfg, muts in base_mutants(n, base_seed):
+            where = (f"base {bi} (clip seed {base_seed + bi}, mutation seed "
+                     f"{base_seed * 7 + bi})")
+            taken = []  # (index, mutant, golden frames, their csums, oracle's)
+            for i, data in enumerate(muts):
+                path.write_bytes(data)
+                res = subprocess.run([str(oracle), "--csum", str(path),
+                                      "/dev/null"], capture_output=True,
+                                     text=True)
+                if res.returncode != 0:
+                    counts["oracle_rejects"] += 1
+                    continue
+                want = [ln.split("csum=")[1] for ln in res.stdout.splitlines()
+                        if "csum=" in ln]
+                try:
+                    demux = Demuxer(data)
+                    if demux.info.cfg != cfg:
+                        counts["shape_changed"] += 1
+                        continue
+                    planner = NativePlanner(cfg)
+                    for r in demux.video_records():
+                        planner.plan_frame(r.frame_char, r.payload)
+                except (ContainerError, PlannerError):
+                    counts["planner_rejects"] += 1
+                    continue
+                try:
+                    golden = [b"".join(p.tobytes() for p in f)
+                              for f in refdec.decode_clip(cfg, data)]
+                    gsums = [f"{bytes_csum(f):08x}" for f in golden]
+                    if gsums != want:
+                        parts.append(f"{where} mutant {i}: golden csums "
+                                     f"{gsums} vs oracle {want}")
+                except ValueError as e:  # e.g. a P frame with no reference
+                    golden = gsums = None
+                    parts.append(f"{where} mutant {i}: the golden decoder "
+                                 f"refuses ({e}); the oracle decodes it")
+                taken.append((i, data, golden, gsums, want))
+            if not taken:
+                continue
+            print(f"fuzz: {where}: mutants {[t[0] for t in taken]} to "
+                  f"{device}", file=sys.stderr, flush=True)
+            for k in (1, 2):
+                ms = MultiStreamDecoder(cfg, [t[1] for t in taken], device,
+                                        steps_per_dispatch=k)
+                frames = [[] for _ in taken]
+                sums = [[] for _ in taken]
+                for planes, _metas, valid in ms.run_pipelined():
+                    cs = batch_csum(*planes).cpu().tolist()
+                    host = [p.cpu().numpy() for p in planes]
+                    for j, ok in enumerate(valid):
+                        if ok:
+                            frames[j].append(b"".join(h[j].tobytes()
+                                                      for h in host))
+                            sums[j].append(f"{cs[j]:08x}")
+                decode_steps += int(ms.stats["steps"]) * k
+                for j, (i, _data, golden, gsums, want) in enumerate(taken):
+                    if golden is not None and frames[j] != golden:
+                        raise AssertionError(
+                            f"fuzz {where} mutant {i}, K={k}: {device} "
+                            f"frames differ from the golden decode")
+                    if gsums == want and sums[j] != want:
+                        raise AssertionError(
+                            f"fuzz {where} mutant {i}, K={k}: {device} "
+                            f"csums differ from oracle --csum")
+            counts["on_device"] += len(taken)
+            counts["frames"] += sum(len(t[4]) for t in taken)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    print(json.dumps({"mutants": n // 6 * 6, **counts, "parts": parts,
+                      "decode_steps": decode_steps,
+                      "launches": {k.symbol: k.launches for k in kernels},
+                      "seconds": time.perf_counter() - t0}))
+
+
+def bytes_csum(frame: bytes) -> int:
+    """`oracle --csum` of one frame's YUV bytes (planes concatenated)."""
+    import torch
+
+    from hvqm4_tpu_torch.utils.hashing import frame_csum
+
+    flat = torch.frombuffer(bytearray(frame), dtype=torch.uint8)
+    return int(frame_csum([flat.view(1, -1)]))
+
+
+def phase_tools(dev, oracle: Path, kernels: list, tag: str) -> dict:
+    """Phase 9: (a) `TOOLS_STREAMS`, 640x480 clips of `make_clip`, through
+    the arena decoder on the card as 3 streams at K = 1 and 2, and
+    `TOOLS_SESSION` at 4:4:4 version 1.5 through `DecoderSession`: every
+    frame's csum equal to `oracle --csum`; `intra_synth_acc` and
+    `inter_combine` launch 3 x the arena's decode steps and
+    `intra_synth_noacc` not at all, and the session launches
+    `intra_synth_noacc` 3 x its I frames, the other two 3 x its P and B
+    frames. (b) `fuzz_child` in its own process, started first and run
+    beside (a): rc 0 and its line. Returns the phase's launches, the
+    child's included."""
+    import torch
+
+    from hvqm4_tpu_torch.config import SeqConfig
+    from hvqm4_tpu_torch.parallel.multistream import MultiStreamDecoder
+    from hvqm4_tpu_torch.session import DecoderSession
+    from hvqm4_tpu_torch.utils.hashing import frame_csum, oracle_csums
+
+    t_phase = time.perf_counter()
+    child = subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.fuzz_child()"],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+    try:
+        cfg = SeqConfig(*TOOLS_SIZE)
+        cfg444 = SeqConfig(*TOOLS_SIZE, 1, 1, version="1.5")
+        t0 = time.perf_counter()
+        *streams, sclip = generate_clips(
+            [(cfg, TOOLS_GOPS, kw) for _what, kw in TOOLS_STREAMS]
+            + [(cfg444, TOOLS_GOPS, TOOLS_SESSION)])
+        print(f"tools: make_clip of {len(streams) + 1} {cfg.width}x"
+              f"{cfg.height} clips "
+              f"{TOOLS_GOPS} in {time.perf_counter() - t0:.1f} s (one "
+              f"process each): {[len(c) for c in (*streams, sclip)]} B")
+        SCRATCH.mkdir(parents=True, exist_ok=True)
+        want = []
+        for i, data in enumerate((*streams, sclip)):
+            path = SCRATCH / f"tools{i}.h4m"
+            path.write_bytes(data)
+            want.append(oracle_csums(oracle, path))
+        for k in kernels:
+            k.launches = 0
+        substeps = 0
+        for k in (1, 2):
+            ms = MultiStreamDecoder(cfg, streams, dev, steps_per_dispatch=k)
+            got = arena_csums(ms, ms.run_pipelined())
+            for j, (what, kw) in enumerate(TOOLS_STREAMS):
+                if got[j] != want[j] or not got[j]:
+                    fail(f"tools: arena K={k} stream {j} ({what}, seed "
+                         f"{kw['seed']}) differs from the oracle")
+            substeps += int(ms.stats["steps"]) * k
+            print(f"tools: arena on {dev}, K={k}: {len(streams)} random "
+                  f"{cfg.width}x{cfg.height} streams "
+                  f"({', '.join(w for w, _ in TOOLS_STREAMS)})"
+                  f", {int(ms.stats['frames'])} frames, csum == oracle on "
+                  f"every frame")
+        torch.cuda.synchronize()
+        arena = {k.symbol: k.launches for k in kernels}
+        for sym, n in (("hvqm4_intra_synth_acc", 3 * substeps),
+                       ("hvqm4_inter_combine", 3 * substeps),
+                       ("hvqm4_intra_synth_noacc", 0),
+                       ("hvqm4_yuv_to_rgb", 0)):
+            if arena[sym] != n:
+                fail(f"tools: {sym} launched {arena[sym]} times on the "
+                     f"arena, want {n} ({substeps} decode steps)")
+        for k in kernels:
+            k.launches = 0
+        got = [f"{int(frame_csum(f.planes)):08x}"
+               for f in DecoderSession(cfg444, dev).decode_clip(sclip)]
+        if got != want[-1]:
+            fail("tools: the 4:4:4 v1.5 clip through the session differs "
+                 "from the oracle")
+        torch.cuda.synchronize()
+        session = {k.symbol: k.launches for k in kernels}
+        n_i = sum(g.count("I") for g in TOOLS_GOPS)
+        n_pb = sum(map(len, TOOLS_GOPS)) - n_i
+        for sym, n in (("hvqm4_intra_synth_noacc", 3 * n_i),
+                       ("hvqm4_intra_synth_acc", 3 * n_pb),
+                       ("hvqm4_inter_combine", 3 * n_pb),
+                       ("hvqm4_yuv_to_rgb", 0)):
+            if session[sym] != n:
+                fail(f"tools: {sym} launched {session[sym]} times in the "
+                     f"session, want {n}")
+        print(f"tools: session on {dev}, 4:4:4 v1.5 {cfg.width}x{cfg.height} "
+              f"(seed {TOOLS_SESSION['seed']}): {len(got)} frames, csum == "
+              f"oracle; launches {session}")
+        try:
+            out, err = child.communicate(timeout=FUZZ_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            fail(f"tools: the fuzz child did not end within "
+                 f"{FUZZ_TIMEOUT_S} s")
+    finally:
+        if child.poll() is None:
+            os.killpg(child.pid, signal.SIGKILL)
+            child.communicate()
+    lines = out.strip().splitlines()
+    if child.returncode != 0 or not lines:
+        fail(f"tools: the fuzz child: rc {child.returncode}:\n"
+             f"{err[-3000:]}")
+    res = json.loads(lines[-1])
+    for part in res["parts"]:
+        print(f"tools: fuzz finding (the golden decoder parts from the "
+              f"oracle; planner shared by both packages): {part}")
+    fz = res["launches"]
+    for sym, n in (("hvqm4_intra_synth_acc", 3 * res["decode_steps"]),
+                   ("hvqm4_inter_combine", 3 * res["decode_steps"]),
+                   ("hvqm4_intra_synth_noacc", 0)):
+        if fz[sym] != n:
+            fail(f"tools: fuzz {sym} launched {fz[sym]} times, want {n}")
+    print(f"tools: fuzz on {dev} in a child process: {res['mutants']} "
+          f"mutants, oracle rejects {res.get('oracle_rejects', 0)}, shape "
+          f"changed {res.get('shape_changed', 0)}, planner rejects "
+          f"{res.get('planner_rejects', 0)}; {res.get('on_device', 0)} "
+          f"through the arena at K = 1 and 2 ({res.get('frames', 0)} frames "
+          f"each), no CUDA fault, frames == the golden decode, csum == oracle"
+          f" where the golden decode is; golden parts from the oracle on "
+          f"{len(res['parts'])}; launches {fz} ({res['seconds']:.1f} s)")
+    print(f"phase 9 (tools): {time.perf_counter() - t_phase:.1f} s [{tag}]")
+    return {sym: arena[sym] + session[sym] + fz[sym] for sym in arena}
 
 
 def main() -> int:
@@ -2383,6 +2756,11 @@ def main() -> int:
     phase_bench({"": len(want[CLIPS[0]]), "retail_": len(want[CLIPS[1]])},
                 tag)
 
+    # phase 9: the tools' random clips and fuzz mutants, counted
+    tools_launches = phase_tools(dev, oracle, kernels, tag)
+    print(f"launches on the tools phase (phase 9, the fuzz child included): "
+          f"{tools_launches}")
+
     sources = {"hvqm4_intra_synth_noacc": "intra.cu",
                "hvqm4_intra_synth_acc": "intra.cu",
                "hvqm4_inter_combine": "inter.cu",
@@ -2402,7 +2780,8 @@ def main() -> int:
                                   + encoder_launches[k.symbol]
                                   + train_launches[k.symbol]
                                   + sharded_launches.get(k.symbol, 0)
-                                  + serve_launches[k.symbol]),
+                                  + serve_launches[k.symbol]
+                                  + tools_launches[k.symbol]),
                      "max_abs_err": err[name], "ms": t["ms"],
                      "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_us"] / 1e3, "bound_by": "bytes",

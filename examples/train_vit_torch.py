@@ -1,6 +1,7 @@
 """Training example on the port: `.h4m` corpus → decode on the card → ViT →
 `torch.optim.Adam`. The counterpart of `examples/train_vit.py`; it imports
-only `hvqm4_tpu_torch`.
+only `hvqm4_tpu_torch` and the port's clip generator
+(`tools/encoder_torch.py`).
 
 The framework as a training input pipeline: `FrameBatchLoader` decodes N
 streams in lock-step on the card, converts them to RGB and resizes them
@@ -14,8 +15,10 @@ whole decode → RGB → resize → ViT stack, and the loss must fall.
                                        [--device cuda|cpu]
                                        [--dp 2 --tp 2 --backend nccl|gloo]
 
-Without `--clip` the clips are encoded here by the port's `VideoEncoder`
-from seeded synthetic frames, with the JAX example's GOP patterns. `--device`
+Without `--clip` the clips are the JAX example's: stream s is
+`tools/encoder_torch.make_clip` (the port's generator) of the GOP patterns
+["IPBPB", "IPP"] at seed s, byte for byte what `tools/encoder.make_clip`
+gives the JAX example. `--device`
 defaults to `cuda`; without a card the script fails. `--device cpu` runs
 the plain PyTorch paths on purpose.
 
@@ -39,7 +42,6 @@ import argparse
 import pathlib
 import sys
 
-import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -49,10 +51,10 @@ sys.path.insert(0, str(REPO))
 from hvqm4_tpu_torch.config import SeqConfig  # noqa: E402
 from hvqm4_tpu_torch.container import Demuxer  # noqa: E402
 from hvqm4_tpu_torch.data import FrameBatchLoader  # noqa: E402
-from hvqm4_tpu_torch.encode import VideoEncoder  # noqa: E402
 from hvqm4_tpu_torch.models.vit import (ViT, ViTConfig, init_vit,  # noqa: E402
                                         shard_vit_params)
 from hvqm4_tpu_torch.parallel.dist import launch, make_mesh  # noqa: E402
+from tools.encoder_torch import make_clip  # noqa: E402
 
 GOPS = ["IPBPB", "IPP"]
 
@@ -164,37 +166,10 @@ def train_rank(device, dp: int, tp: int, args: tuple,
                  **kwargs)
 
 
-def synth_frames(cfg: SeqConfig, n: int, seed: int) -> list:
-    """`n` display-ordered [Y, U, V] u8 frames from `seed`: a drifting
-    sinusoid with noise, a moving bright square and flat chroma levels that
-    change with time, so the clips hold intra, inter and skipped blocks and
-    each frame has its own mean colour."""
-    rng = np.random.default_rng(seed)
-    h, w = cfg.plane_shapes[0]
-    ch, cw = cfg.plane_shapes[1]
-    yy, xx = np.mgrid[0:h, 0:w]
-    fx, fy = rng.uniform(0.04, 0.3, 2)
-    level = rng.uniform(60, 180)
-    side = max(min(h, w) // 4, 4)
-    vx, vy = rng.integers(1, 4, 2)
-    u0, v0 = rng.uniform(70, 190, 2)
-    frames = []
-    for t in range(n):
-        y = (level + 50 * np.sin(fx * xx + 0.4 * t) * np.cos(fy * yy)
-             + rng.normal(0, 4, (h, w)))
-        x0, y0 = (vx * t) % (w - side + 1), (vy * t) % (h - side + 1)
-        y[y0:y0 + side, x0:x0 + side] = 235
-        u = np.full((ch, cw), u0 + 6 * t)
-        v = np.full((ch, cw), v0 - 5 * t)
-        frames.append([np.clip(p, 0, 255).astype(np.uint8) for p in (y, u, v)])
-    return frames
-
-
 def make_clips(cfg: SeqConfig, n_streams: int, gops=GOPS) -> list[bytes]:
-    """One clip a stream, stream s encoded from `synth_frames` of seed s."""
-    n = sum(len(g) for g in gops)
-    return [VideoEncoder(cfg, seed=s).encode(synth_frames(cfg, n, s), gops)
-            for s in range(n_streams)]
+    """One clip a stream, stream s `make_clip(cfg, gops, seed=s)`, as
+    `examples/train_vit.py` makes its clips."""
+    return [make_clip(cfg, gops, seed=s) for s in range(n_streams)]
 
 
 def main() -> int:
@@ -205,7 +180,7 @@ def main() -> int:
     ap.add_argument("--epochs", type=int, default=3)
     ap.add_argument("--clip", action="append", default=[],
                     help="an .h4m clip to train on (repeatable); replaces "
-                         "the encoded synthetic clips")
+                         "the generated clips")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default: cuda)")
     ap.add_argument("--dp", type=int, default=0,

@@ -12,9 +12,11 @@
   go through RGB → resize → a ViT sharded over "tp". Where the budget
   allows, the decode repeats at K=2.
 
-The dry run's clips come from `examples/train_vit_torch.make_clips` (the
-port's own encoder; `tools/encoder.make_clip` imports the JAX package), so
-it runs from a checkout, as the JAX entry does with `tools/encoder`.
+The dry run's clips are `__graft_entry__.dryrun_multichip`'s: stream s is
+`make_clip(cfg, gops, seed=s)` (`dryrun_clips`), from the port's generator
+`tools/encoder_torch.py`, which writes the bytes `tools/encoder.py` writes
+and imports nothing of the JAX package; so it runs from a checkout, as the
+JAX entry does with `tools/encoder`.
 """
 
 from __future__ import annotations
@@ -169,25 +171,34 @@ def _dryrun_rank(dev, dp: int, tp: int, cfg: SeqConfig, clips: list,
     return {"frames": frames, "ks": ks, "emb": tuple(emb.shape)}
 
 
+def dryrun_clips(dp: int, budget_s: float) -> tuple:
+    """(cfg, clips) of the dry run at a "dp" width of `dp`, as
+    `__graft_entry__.dryrun_multichip` makes them: 64x48, two streams a
+    shard of ["IPBPB", "IPP"], or under a tight budget (< 300 s) one a
+    shard of ["IPB", "IP"]; stream s `make_clip(cfg, gops, seed=s)`."""
+    from tools.encoder_torch import make_clip
+
+    cfg = SeqConfig(64, 48)
+    small = budget_s < 300
+    n_streams = dp if small else 2 * dp  # two streams a shard normally
+    gops = ["IPB", "IP"] if small else ["IPBPB", "IPP"]
+    return cfg, [make_clip(cfg, gops, seed=s) for s in range(n_streams)]
+
+
 def dryrun_multichip(n_devices: int, device="cuda", backend: str | None = None,
                      budget_s: float = 480.0) -> None:
     """The sharded path on `n_devices` ranks (`parallel.dist.launch`): a
     ("dp", "tp") mesh with tp=2 where `n_devices` is even. Under a tight
     budget (< 300 s) the clips are fewer and shorter, still I/P/B in two GOP
     blocks. Raises if a rank fails; prints one line."""
-    from examples.train_vit_torch import make_clips
-
     from .parallel.dist import launch
 
     t_start = time.monotonic()
     deadline = time.time() + budget_s
     tp = 2 if n_devices % 2 == 0 else 1
     dp = n_devices // tp
-    cfg = SeqConfig(64, 48)
-    small = budget_s < 300
-    n_streams = dp if small else 2 * dp  # two streams a shard normally
-    gops = ["IPB", "IP"] if small else ["IPBPB", "IPP"]
-    clips = make_clips(cfg, n_streams, gops)
+    cfg, clips = dryrun_clips(dp, budget_s)
+    n_streams = len(clips)
     want, golden = _golden_hashes(cfg, clips)
     out = launch(_dryrun_rank, n_devices, dp, tp, cfg, clips, want, deadline,
                  device=device, backend=backend)

@@ -9,18 +9,16 @@ stream with the C oracle's output, byte for byte.
     python scripts/soak_device_torch.py [n_cases] [base_seed]
                                         [--device cuda|cpu]
 
-Each case draws, from its seed: width and height in 16..96 in steps of 8,
-4:2:0 or 4:4:4, version 1.3 or 1.5, `HVQM4_PLANNER_THREADS` 1 or 4, 1-3
-streams, K in {1, 2, 4}; per stream a GOP pattern ("I" then one of "P",
-"BP", "BBP", "PBPB" or nothing), a slice count and a `dc_shift`.
-
-The clips come from the port's own `VideoEncoder` (it imports nothing of
-the JAX package, so not `tools/encoder.make_clip`), on seeded synthetic
-frames (`examples/train_vit_torch.synth_frames`). That encoder decides
-from content, so what `make_clip` reaches by random choice alone is reached
-here only where the content calls for it: forced escapes of DC and vector
-deltas, nest origins anywhere up to twice the block grid, extreme vectors
-(`mv_extreme`), and every mode in every frame type.
+Each case draws, from its seed, what `soak_device.py`'s `one_case` draws,
+with the same rng calls in the same order (`case_clips`): width and height
+in 16..96 in steps of 8, 4:2:0 or 4:4:4, version 1.3 or 1.5,
+`HVQM4_PLANNER_THREADS` 1 or 4, 1-3 streams, K in {1, 2, 4}; per stream a
+GOP pattern ("I" then one of "P", "BP", "BBP", "PBPB" or nothing), a slice
+count and a `dc_shift`. Stream s of seed `seed` is the port's
+`tools/encoder_torch.make_clip` of seed `seed * 17 + s`, so a seed gives
+both soaks the same streams, byte for byte: every block mode chosen at
+random in every frame type, forced escapes of DC and vector deltas, and
+nest origins anywhere up to twice the block grid.
 
 No run is split into subprocesses: the JAX script recycles its address
 space every 50 cases because each geometry compiles there; nothing
@@ -42,10 +40,9 @@ import numpy as np
 REPO = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
-from examples.train_vit_torch import synth_frames  # noqa: E402
 from hvqm4_tpu_torch.config import SeqConfig  # noqa: E402
-from hvqm4_tpu_torch.encode import VideoEncoder  # noqa: E402
 from hvqm4_tpu_torch.parallel.multistream import MultiStreamDecoder  # noqa: E402
+from tools.encoder_torch import make_clip  # noqa: E402
 
 
 def oracle_yuv(oracle_bin, clip: bytes) -> bytes:
@@ -61,9 +58,9 @@ def oracle_yuv(oracle_bin, clip: bytes) -> bytes:
         return dst.read_bytes()
 
 
-def one_case(oracle_bin, seed: int, device) -> str:
-    """Encode, decode on `device` and compare one random case; returns its
-    description, raises AssertionError on a mismatch."""
+def case_clips(seed: int) -> tuple:
+    """The case of `seed`, drawn as `soak_device.py`'s `one_case` draws it:
+    (cfg, clips, planner threads, K, description)."""
     rng = np.random.default_rng(seed)
     w = 8 * int(rng.integers(2, 13))
     h = 8 * int(rng.integers(2, 13))
@@ -72,7 +69,6 @@ def one_case(oracle_bin, seed: int, device) -> str:
     cfg = SeqConfig(w, h, samp, samp, version=version)
     mh = cfg.mb_grid[0]
     threads = int(rng.choice([1, 4]))
-    os.environ["HVQM4_PLANNER_THREADS"] = str(threads)
     n_streams = int(rng.integers(1, 4))
     k = int(rng.choice([1, 2, 4]))  # fused-dispatch factor (virtual slots)
     clips, slices_used = [], []
@@ -80,14 +76,21 @@ def one_case(oracle_bin, seed: int, device) -> str:
         pattern = "I" + str(rng.choice(["P", "BP", "BBP", "PBPB", ""]))
         slices = int(rng.integers(1, min(mh, 6) + 1))
         slices_used.append(slices)
-        s = seed * 17 + si
-        enc = VideoEncoder(cfg, seed=s, slices=slices,
-                           dc_shift=int(rng.integers(0, 8)))
-        clips.append(enc.encode(synth_frames(cfg, len(pattern), s),
-                                [pattern]))
+        clips.append(make_clip(cfg, [pattern], seed=seed * 17 + si,
+                               dc_shift=int(rng.integers(0, 8)),
+                               slices=slices))
     desc = (f"seed={seed} {w}x{h} samp={samp} v{version} "
             f"streams={n_streams} slices={slices_used} threads={threads} "
             f"K={k}")
+    return cfg, clips, threads, k, desc
+
+
+def one_case(oracle_bin, seed: int, device) -> str:
+    """Decode on `device` and compare one random case; returns its
+    description, raises AssertionError on a mismatch."""
+    cfg, clips, threads, k, desc = case_clips(seed)
+    os.environ["HVQM4_PLANNER_THREADS"] = str(threads)
+    n_streams = len(clips)
     ms = MultiStreamDecoder(cfg, clips, device, steps_per_dispatch=k)
     got = [b""] * n_streams
     for frames, _metas, valid in ms.run_pipelined():

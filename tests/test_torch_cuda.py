@@ -42,7 +42,7 @@ from hvqm4_tpu_torch.parallel.multistream import MultiStreamDecoder
 from hvqm4_tpu_torch.pipeline import VideoEmbedPipeline
 from hvqm4_tpu_torch.session import DecoderSession
 from hvqm4_tpu_torch.utils.hashing import batch_csum, oracle_csums
-from tools.encoder import make_clip
+from tools.encoder_torch import make_clip
 
 from .torch_sharded_ranks import steps_rank
 
@@ -320,6 +320,21 @@ def test_cuda_arena_matches_oracle_and_cpu(cuda, tmp_path, k):
                        k, 2)
     assert _csums(steps, 8) == [oracle_csums(oracle, REPO / "testdata" / n)
                                 for n in names]
+
+
+@pytest.mark.cuda
+def test_cuda_arena_random_640x480_clip_matches_oracle(cuda, tmp_path):
+    """A random 640x480 clip of the port's generator (every block mode,
+    forced escapes, mv_extreme vectors) through the arena decoder on the
+    card at K=2: every frame's csum equals `oracle --csum`."""
+    cfg = SeqConfig(640, 480)
+    clip = make_clip(cfg, ["IPB"], seed=9201, mv_extreme=True,
+                     audio_channels=1)
+    path = tmp_path / "r.h4m"
+    path.write_bytes(clip)
+    steps = _arena_run(cfg, [clip, clip], cuda, 2, 2)
+    want = oracle_csums(_oracle(), path)
+    assert len(want) == 3 and _csums(steps, 2) == [want, want]
 
 
 @pytest.mark.cuda

@@ -234,6 +234,7 @@ _NO_JAX = r"""
 import sys
 sys.modules["jax"] = None        # any `import jax` now raises ImportError,
 sys.modules["hvqm4_tpu"] = None  # and so does any import of the JAX package
+sys.modules["tools.encoder"] = None  # and of the JAX package's generator
 import importlib
 import pkgutil
 import threading
@@ -307,6 +308,13 @@ with torch_trace(os.path.join(os.path.dirname(sys.argv[1]), "trace")):
     losses = train(cfg, [clip, clip], ViTConfig(16, 8, 32, 1, 2), epochs=1,
                    device="cpu")
 assert len(losses) == 3
+import scripts.fuzz_battery_torch
+import tools.dump_payloads_torch
+import tools.make_retail_clip_torch
+import tools.rd_sweep_torch
+from tools.encoder_torch import make_clip
+assert make_clip(cfg, ["IPB"], seed=77) == clip
+assert sys.modules["tools.encoder"] is None
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "hvqm4_tpu"))
 assert loaded == ["hvqm4_tpu", "jax"], loaded   # only the blockers
@@ -321,7 +329,10 @@ def test_port_never_imports_jax(tmp_path):
     and one loader batch, is encoded with the full-nest search on the CPU
     and transcoded, and the training example trains an epoch under
     `torch_trace`, with both JAX and the JAX package blocked; the
-    example's, the scripts' and the soak's modules import too."""
+    example's, the scripts' and the soak's modules import too, and so do
+    the port's tools (`tools/*_torch.py`, `scripts/fuzz_battery_torch.py`),
+    whose generator makes the test's clip byte for byte with
+    `tools/encoder.py` blocked as well."""
     clip = tmp_path / "c.h4m"
     clip.write_bytes(make_clip(SeqConfig(32, 16), ["IPB"], seed=77))
     env = dict(os.environ, PYTHONPATH=str(REPO))
